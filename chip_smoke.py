@@ -5,11 +5,13 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It needs one CUDA card and ``nvcc``; it builds the integrity-hash kernel from
-the repository's own sources on first use.  Phases, each of which ends the
-run with a non-zero exit code if it fails:
+It needs one CUDA card and ``nvcc``; it builds the port's kernels (the
+integrity hash and the lane segment step) from the repository's own
+sources, both at once, on first use.  Phases, each of which ends the run
+with a non-zero exit code if it fails:
 
-1. Device and build: the card's name and power limit, the kernel's build.
+1. Device and build: the card's name and power limit, the kernels' builds
+   with their registers and spills.
 2. Kernel against its plain PyTorch version and the numpy reference, on the
    card, bit for bit, at the main path's shapes (4 MiB chunks, 256 MiB
    buffers), at global word offsets up to the 2**32 wrap, on an unaligned
@@ -21,8 +23,21 @@ run with a non-zero exit code if it fails:
    corrupted chunk in flight that must be retransmitted, then audited.
 4. Campaign: the paper's 2022 campaign (48 datasets, 7.3 PB) reproduces the
    JAX package's numbers.
+5. Lane segment step: the kernel against its plain PyTorch version on the
+   card and the numpy reference, bit for bit with NaN in the same places, at
+   the ensemble path's [256 lanes, 256 rows] and the full catalog's
+   [256, 4582], with edge rows and a ragged shape; with the kernel's, the
+   plain version's and the copies' times beside the kernel's bound.
+6. Ensemble, the second main path: ``ensemble-paper-bands`` (256 lanes, 128
+   datasets, scale 0.01) through ``run_ensemble`` on the numpy backend and
+   on the default torch backend on the card; every lane's gate fields and
+   the bands must be equal, lane 0 must pass ``check_lane0`` on the card,
+   and the kernel must launch once per segment step; with each backend's
+   wall time, the per-tick split and the device's busy share.
 
-It prints one ``{"kernels": [...]}`` JSON line and, last, the result line
+Each main path (phases 3 and 6) is driven with every kernel's launch count
+set to 0 just before it and read just after.  It prints one
+``{"kernels": [...]}`` JSON line and, last, the result line
 ``{"ok": true, "device": {...}}``.  It imports neither JAX nor the JAX
 package.
 """
@@ -35,6 +50,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -46,10 +62,17 @@ SEED = 0
 DEVICE = "cuda"
 
 # H100 SXM published peaks: HBM3 at 3.35 TB/s; 32-bit integer issue rate
-# 132 SMs x 64 INT32 lanes x 1.98 GHz (half the 67 TFLOP/s FP32 lanes)
+# 132 SMs x 64 INT32 lanes x 1.98 GHz (half the 67 TFLOP/s FP32 lanes); fp64
+# issue rate 132 SMs x 64 FP64 lanes x 1.98 GHz (33.5 TFLOP/s counting a
+# fused multiply-add as two)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_INT32_OPS_PER_S = 132 * 64 * 1.98e9
+PEAK_FP64_OPS_PER_S = 132 * 64 * 1.98e9
 OPS_PER_WORD = 12          # index add + multiply, XOR, mix32 (8), fold XOR
+# the lane step per element: 4 f64 read, 4 f64 + 1 bool written; two
+# subtractions, a division, two products and a sum
+LANE_STEP_BYTES = 4 * 8 + 4 * 8 + 1
+LANE_STEP_OPS = 6
 
 # the paper's mean file is 7.3 PB / 28.9 M files = 271 MiB
 FILE_BYTES = 256 * MiB
@@ -60,6 +83,19 @@ DATASET = "css03_data/CMIP6/CMIP/NCAR/CESM2/historical/r1i1p1f1/Amon/tas/gn/v201
 # seed=0)); this script cannot import it
 CAMPAIGN_WANT = {"duration_days": 106.167, "faults_total": 703,
                  "faults_per_transfer_max": 195, "quarantined": 0}
+
+# the ensemble path: ensemble-paper-bands at all 256 lanes, cut in datasets
+# and scale
+ENSEMBLE = "ensemble-paper-bands"
+ENSEMBLE_DATASETS = 128
+ENSEMBLE_SCALE = 0.01
+ENSEMBLE_CUTS = ("datasets 2291 -> 128, scale 1.0 -> 0.01: the host lanes "
+                 "engine does not finish 16 lanes of the full catalog in "
+                 "100 s")
+# the lane step's shapes: the ensemble path's [lanes, 2 replicas x 128
+# datasets], the full catalog's [lanes, 2 x 2291], and a ragged one
+LANE_SHAPES = {"main": (256, 256), "full_catalog": (256, 4582),
+               "ragged": (255, 4583)}
 
 
 def fail(msg: str) -> None:
@@ -105,13 +141,15 @@ def host_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def profiled(torch, fn, iters: int) -> dict:
+def profiled(torch, fn, iters: int, kernel_name: str = "fold_words_kernel",
+             warmup: bool = True) -> dict:
     """Run ``fn`` ``iters`` times under ``torch.profiler`` and split the
-    device time it recorded: the integrity-hash kernel, host-to-device
-    copies, everything else; with the wall time of the window (profiler
+    device time it recorded: the kernel named ``kernel_name``, host-to-device
+    and device-to-host copies; with the wall time of the window (profiler
     overhead included).  Times in ms, totals over the window."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -121,30 +159,56 @@ def profiled(torch, fn, iters: int) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     out = {"wall_ms": wall * 1e3, "kernel_ms": 0.0, "kernel_count": 0,
-           "h2d_ms": 0.0, "h2d_count": 0}
+           "h2d_ms": 0.0, "h2d_count": 0, "d2h_ms": 0.0, "d2h_count": 0}
     for avg in prof.key_averages():
         us = avg.self_device_time_total
-        if "fold_words_kernel" in avg.key:
-            out["kernel_ms"] += us / 1e3
-            out["kernel_count"] += avg.count
-        elif avg.key.startswith("Memcpy HtoD"):
-            out["h2d_ms"] += us / 1e3
-            out["h2d_count"] += avg.count
+        for part, match in (("kernel", kernel_name in avg.key),
+                            ("h2d", avg.key.startswith("Memcpy HtoD")),
+                            ("d2h", avg.key.startswith("Memcpy DtoH"))):
+            if match:
+                out[f"{part}_ms"] += us / 1e3
+                out[f"{part}_count"] += avg.count
+                break
     return out
 
 
-def bound(n_words: int):
-    """Least time (ms) the card could fold ``n_words`` words in: the larger
-    of the bytes moved (each word read once, the accumulator written once)
-    over the memory rate and the integer operations over the issue rate."""
-    bytes_ms = (4 * n_words + 4) / PEAK_BYTES_PER_S * 1e3
-    ops_ms = OPS_PER_WORD * n_words / PEAK_INT32_OPS_PER_S * 1e3
+def roofline(n_bytes: float, n_ops: float, ops_per_s: float):
+    """Least time (ms) the card could take, and what sets it: the larger of
+    the bytes over the memory rate and the operations over their rate."""
+    bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = n_ops / ops_per_s * 1e3
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
                                    else "operations")
 
 
+def kernel_time(prof: dict, events_ms: float):
+    """A kernel's own device time per launch, and its source: the
+    profiler's mean over the launches it recorded (it may drop a few), or,
+    where it recorded none, CUDA events over back-to-back calls, which also
+    count the wrapper's host time wherever the host launches slower than
+    the card runs."""
+    if prof["kernel_count"]:
+        return prof["kernel_ms"] / prof["kernel_count"], "torch.profiler"
+    return events_ms, "cuda_events"
+
+
+def bound(n_words: int):
+    """Least time (ms) the card could fold ``n_words`` words in: each word
+    read once and the accumulator written once; 12 integer operations a
+    word."""
+    return roofline(4 * n_words + 4, OPS_PER_WORD * n_words,
+                    PEAK_INT32_OPS_PER_S)
+
+
+def lane_step_bound(n: int):
+    """Least time (ms) for the lane step over ``n`` elements: 65 bytes and
+    6 fp64 operations each."""
+    return roofline(LANE_STEP_BYTES * n, LANE_STEP_OPS * n,
+                    PEAK_FP64_OPS_PER_S)
+
+
 # ------------------------------------------------------------------ phases
-def phase_device_and_build(torch, kernel) -> str:
+def phase_device_and_build(torch, kernels) -> str:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
@@ -154,14 +218,18 @@ def phase_device_and_build(torch, kernel) -> str:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"devices {torch.cuda.device_count()} "
         f"[{torch.cuda.get_device_name(0)}]")
+    # one nvcc per kernel source, all started together
     t0 = time.perf_counter()
-    lib = kernel.build()
-    kernel.load()
-    log(f"[1] kernel library {lib.relative_to(ROOT)} ready in "
+    with ThreadPoolExecutor(len(kernels)) as pool:
+        libs = list(pool.map(lambda k: k.LIBRARY.build(), kernels))
+    for kernel, lib in zip(kernels, libs):
+        kernel.LIBRARY.load()
+        log(f"[1] kernel library {lib.relative_to(ROOT)} ready")
+        for line in kernel.LIBRARY.build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"    ptxas: {line.strip()}")
+    log(f"[1] {len(kernels)} kernel libraries built in "
         f"{time.perf_counter() - t0:.3f} s")
-    for line in kernel.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"    ptxas: {line.strip()}")
     return card
 
 
@@ -250,17 +318,12 @@ def phase_kernel(torch, np, kernel, ref, ops, integrity, card: str) -> dict:
              lambda: ref.fold_words_torch(big, 0),
              lambda: ops.words_tensor(big_data, 64 * MiB, dev), 20)):
         b_ms, b_by = bound(n_words)
-        # the kernel's own device time, from the profiler's CUDA activity;
-        # CUDA events over back-to-back calls also count the wrapper's host
-        # overhead wherever the host launches slower than the card runs
         prof = profiled(torch, kfn, it)
         events_ms = cuda_ms(torch, kfn, it)
-        if prof["kernel_count"] == it:
-            k_ms, source = prof["kernel_ms"] / it, "torch.profiler"
-        else:                       # the profiler saw no device activity
-            k_ms, source = events_ms, "cuda_events"
+        k_ms, source = kernel_time(prof, events_ms)
         timings[label] = {
             "ms": k_ms, "ms_source": source,
+            "profiled_launches": prof["kernel_count"], "launched": it,
             "events_ms_per_call": events_ms,
             "plain_ms": cuda_ms(torch, pfn, max(2, it // 10)),
             "bound_ms": b_ms, "bound_by": b_by,
@@ -282,7 +345,7 @@ def phase_kernel(torch, np, kernel, ref, ops, integrity, card: str) -> dict:
 
 
 def phase_staging(torch, np, kernel, ref, integrity, StagingArea,
-                  chunk_bytes: int) -> dict:
+                  chunk_bytes: int, lane_kernel) -> dict:
     """The main path: StagingArea -> Figure-4 scheduler -> LocalFSTransport,
     every chunk hashed by the kernel on the card."""
     with tempfile.TemporaryDirectory(prefix="repro_torch_smoke_") as tmp:
@@ -323,7 +386,7 @@ def phase_staging(torch, np, kernel, ref, integrity, StagingArea,
         area.register(DATASET)
         ds = area.catalog[DATASET]
 
-        kernel.launches = 0                       # main path starts here
+        kernel.launches = lane_kernel.launches = 0    # main path starts
         t0 = time.perf_counter()
         steps = area.run_until_staged()
         torch.cuda.synchronize()
@@ -334,7 +397,9 @@ def phase_staging(torch, np, kernel, ref, integrity, StagingArea,
                   for pod in area.pods}
         torch.cuda.synchronize()
         audit_wall = time.perf_counter() - t1
-        launches = kernel.launches                # main path ends here
+        launches = kernel.launches                    # main path ends
+        check(lane_kernel.launches == 0,
+              "staging launched the lane-step kernel")
         # this script's own check of the device digests against numpy
         store = integrity.Manifest.scan(store_ds, DEVICE)
 
@@ -419,6 +484,230 @@ def phase_campaign(campaign) -> dict:
     return out
 
 
+# --------------------------------------------------- lane segment step (B2)
+LANE_EDGES = [  # (t, bytes_done, rate, bound)
+    (10.0, 5.0, 0.0, 100.0), (10.0, 5.0, -3.0, 100.0),
+    (10.0, 5.0, float("nan"), 100.0), (10.0, 100.0, 2.0, 50.0),
+    (0.0, 5.0, 2.0, 100.0), (float("inf"), 5.0, 2.0, 100.0),
+    (float("inf"), 5.0, 0.0, 100.0), (10.0, 0.0, 10.0, 100.0),
+    (10.0, 5.0, 2.0, float("nan")), (0.0, 0.0, 1.0, -0.0),
+    (float("nan"), 5.0, 2.0, 100.0), (10.0, 5.0, float("inf"), 100.0),
+    (10.0, 5.0, 2.0, float("inf")), (5e-324, 1e300, 1e-300, 1e308)]
+
+
+def lane_inputs(np, shape, seed: int, edges: bool):
+    """Drawn as the JAX package's ensemble tests draw segment-step inputs;
+    with ``edges``, the edge rows written over some elements."""
+    rng = np.random.default_rng(seed)
+    t = rng.uniform(0.0, 3600.0, size=shape)
+    bd = rng.uniform(0.0, 1e12, size=shape)
+    rate = np.where(rng.random(shape) < 0.2, 0.0,
+                    rng.uniform(1e6, 1e9, size=shape))
+    bound = bd + rng.uniform(0.0, 1e11, size=shape)
+    if edges:
+        flat = [a.reshape(-1) for a in (t, bd, rate, bound)]
+        step = flat[0].size // len(LANE_EDGES)
+        for k, row in enumerate(LANE_EDGES):
+            for a, v in zip(flat, row):
+                a[k * step] = v
+    return t, bd, rate, bound
+
+
+def lane_mismatch(np, got, want) -> float:
+    """0.0 when ``got`` equals ``want`` bit for bit wherever ``want`` is not
+    NaN and is NaN in the same places; else the largest difference (inf for
+    a NaN placed differently, a sign of zero or a flipped ``hit``)."""
+    got, want = np.asarray(got), np.asarray(want)
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return float("inf")
+    if want.dtype == np.bool_:
+        return 0.0 if np.array_equal(got, want) else float("inf")
+    nan = np.isnan(want)
+    if not np.array_equal(np.isnan(got), nan):
+        return float("inf")
+    g, w = got[~nan], want[~nan]
+    bad = g.view(np.int64) != w.view(np.int64)
+    if not bad.any():
+        return 0.0
+    with np.errstate(invalid="ignore"):
+        diff = np.abs(g[bad] - w[bad])
+    # a zero of the other sign, or an inf of the other sign, is inf too
+    return float(np.max(np.where(diff > 0, diff, np.inf)))
+
+
+def phase_lane_step(torch, np, kernel, ref, card: str) -> dict:
+    """B2: kernel == plain PyTorch version on the card == numpy reference."""
+    dev = torch.device(DEVICE)
+    names = ("t_left", "new_bytes", "adv", "moved", "hit")
+    max_err = 0.0
+    cases = []
+    for seed, (label, shape) in enumerate(LANE_SHAPES.items()):
+        for edges in (False, True):
+            host = lane_inputs(np, shape, SEED + seed, edges)
+            with np.errstate(invalid="ignore", over="ignore"):
+                want = ref.lane_segment_step_np(*host)
+            ins = [torch.from_numpy(a).to(dev) for a in host]
+            got = kernel.lane_step_cuda(*ins)
+            plain = ref.lane_segment_step_torch(*ins)
+            torch.cuda.synchronize()
+            for g, p, w, name in zip(got, plain, want, names):
+                g, p = g.cpu().numpy(), p.cpu().numpy()
+                err = max(lane_mismatch(np, g, w), lane_mismatch(np, g, p),
+                          lane_mismatch(np, p, w))
+                max_err = max(max_err, err)
+                check(err == 0.0, f"lane step {label}{list(shape)} edges="
+                      f"{edges}: {name} differs (max err {err})")
+            cases.append(f"{label}{list(shape)}{'+edges' if edges else ''}")
+    log(f"[5] lane step: kernel == plain PyTorch == numpy, bit for bit, on "
+        f"{len(cases)} cases: {', '.join(cases)}")
+
+    timings = {}
+    for label in ("main", "full_catalog"):
+        shape = LANE_SHAPES[label]
+        n = shape[0] * shape[1]
+        host = lane_inputs(np, shape, SEED + 10, False)
+        ins = [torch.from_numpy(a).to(dev) for a in host]
+        it = 200 if label == "main" else 50
+        b_ms, b_by = lane_step_bound(n)
+        # inputs just copied in sit in L2 on the main path; the full
+        # catalog's 76 MB do not fit the 50 MB L2
+        prof = profiled(torch, lambda: kernel.lane_step_cuda(*ins), it,
+                        kernel_name="lane_step_kernel")
+        events_ms = cuda_ms(torch, lambda: kernel.lane_step_cuda(*ins), it)
+        k_ms, source = kernel_time(prof, events_ms)
+        out = kernel.lane_step_cuda(*ins)
+        timings[label] = {
+            "shape": list(shape), "ms": k_ms, "ms_source": source,
+            "profiled_launches": prof["kernel_count"], "launched": it,
+            "events_ms_per_call": events_ms,
+            "plain_ms": cuda_ms(torch, lambda: ref.lane_segment_step_torch(
+                *ins), max(5, it // 10)),
+            "bound_ms": b_ms, "bound_by": b_by,
+            # the per-tick copies of the torch backend: four pageable input
+            # copies in, five outputs back
+            "h2d_ms": host_ms(torch, lambda: [torch.from_numpy(a).to(dev)
+                                              for a in host],
+                              max(5, it // 10)),
+            "d2h_ms": host_ms(torch, lambda: [o.cpu() for o in out],
+                              max(5, it // 10)),
+            "kernel_GBps": LANE_STEP_BYTES * n / k_ms / 1e6,
+            "roofline_share": b_ms / k_ms}
+        log(f"    {label}: " + json.dumps(timings[label]))
+    main = timings["main"]
+    return {"name": "lane_step", "route": "cuda",
+            "source": "src/repro_torch/kernels/lane_step/csrc/lane_step.cu",
+            "replaces": "src/repro/kernels/lane_step/lane_step.py:31",
+            "launches": None, "max_abs_err": max_err, "exact": max_err == 0,
+            "ms": main["ms"], "ms_source": main["ms_source"],
+            "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None, "h2d_ms": main["h2d_ms"],
+            "d2h_ms": main["d2h_ms"],
+            "shape": f"[256 lanes, 256 rows] ({256 * 256} elements)",
+            "at_full_catalog": timings["full_catalog"], "card": card}
+
+
+def phase_ensemble(torch, ens_engine, ens_run, registry, kernel,
+                   hash_kernel) -> dict:
+    """The ensemble main path on the numpy backend and on the default torch
+    backend on the card; the kernel must launch once per segment step."""
+    espec = registry.get_scenario(ENSEMBLE)
+    check(espec.n_lanes == 256, f"{ENSEMBLE} has {espec.n_lanes} lanes")
+    log(f"[6] cuts: {ENSEMBLE_CUTS}")
+    calls = {"n": 0, "s": 0.0}
+    make = ens_engine.make_segment_fn
+
+    def counting(backend, device):
+        """This script's count and host-clock time of the engine's
+        segment-step calls (the package has no such hook)."""
+        fn = make(backend, device)
+
+        def segment(*args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            calls["s"] += time.perf_counter() - t0
+            calls["n"] += 1
+            return out
+        return segment
+
+    ens_engine.make_segment_fn = counting
+    kw = dict(scale=ENSEMBLE_SCALE, n_datasets=ENSEMBLE_DATASETS)
+    runs = {}
+    try:
+        for backend in ("numpy", "torch"):
+            calls.update(n=0, s=0.0)
+            if backend == "torch":
+                kernel.launches = hash_kernel.launches = 0   # path starts
+            t0 = time.perf_counter()
+            res = ens_engine.run_ensemble(espec, backend=backend, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            runs[backend] = {"result": res, "wall_s": wall,
+                             "segment_calls": calls["n"],
+                             "segment_s": calls["s"]}
+        launches = kernel.launches                           # path ends
+        check(hash_kernel.launches == 0,
+              "the ensemble path launched the integrity-hash kernel")
+
+        # the device's busy share over one profiled torch run
+        calls.update(n=0, s=0.0)
+        prof = profiled(torch, lambda: ens_engine.run_ensemble(
+            espec, backend="torch", **kw), 1,
+            kernel_name="lane_step_kernel", warmup=False)
+        prof_calls = calls["n"]
+        lane0 = ens_run.check_lane0(espec, ENSEMBLE_SCALE, ENSEMBLE_DATASETS)
+    finally:
+        ens_engine.make_segment_fn = make
+
+    num, tor = runs["numpy"]["result"], runs["torch"]["result"]
+    check(num.engine == tor.engine == "lanes",
+          f"engines {num.engine}/{tor.engine}, want lanes")
+    check(num.backend == "numpy" and tor.backend == "torch:cuda",
+          f"backends {num.backend}/{tor.backend}")
+    check(len(tor.lanes) == 256, f"{len(tor.lanes)} lanes")
+    for i, (a, b) in enumerate(zip(num.lanes, tor.lanes)):
+        diff = {f: (getattr(a, f), getattr(b, f))
+                for f in ens_run.GATE_FIELDS if getattr(a, f) != getattr(b, f)}
+        check(not diff, f"lane {i}: cuda differs from numpy: {diff}")
+    check(num.bands == tor.bands, "bands differ between numpy and cuda")
+    check(lane0["match"] and lane0["backend"] == "torch:cuda",
+          f"check_lane0 on cuda: {lane0}")
+    n_calls = runs["torch"]["segment_calls"]
+    check(n_calls == runs["numpy"]["segment_calls"],
+          f"{n_calls} segment steps on cuda, "
+          f"{runs['numpy']['segment_calls']} on numpy")
+    check(n_calls > 0 and launches == n_calls,
+          f"{launches} lane-step launches for {n_calls} segment steps")
+    t_run = runs["torch"]
+    # device time per tick from the profiled run: copies are 4 in and 5 out
+    # per tick, so their totals are divided by the ticks it ran
+    per = {k: prof[f"{k}_ms"] / prof_calls for k in ("h2d", "kernel", "d2h")}
+    split = {"host_engine_ms": (t_run["wall_s"] - t_run["segment_s"]) * 1e3
+             / n_calls,
+             "segment_call_ms": t_run["segment_s"] * 1e3 / n_calls,
+             "h2d_ms": per["h2d"], "kernel_ms": per["kernel"],
+             "d2h_ms": per["d2h"]}
+    busy = (prof["h2d_ms"] + prof["kernel_ms"] + prof["d2h_ms"])
+    out = {"ensemble": ENSEMBLE, "lanes": len(tor.lanes),
+           "datasets": ENSEMBLE_DATASETS, "scale": ENSEMBLE_SCALE,
+           "segment_steps": n_calls, "launches": launches,
+           "wall_s_numpy": runs["numpy"]["wall_s"],
+           "wall_s_cuda": t_run["wall_s"],
+           "segment_s_numpy": runs["numpy"]["segment_s"],
+           "segment_s_cuda": t_run["segment_s"],
+           "per_tick_cuda": split,
+           "profiled_wall_ms": prof["wall_ms"],
+           "profiled_events": {k: prof[f"{k}_count"]
+                               for k in ("kernel", "h2d", "d2h")},
+           "device_busy_ms": busy,
+           "device_busy_share": (busy / prof["wall_ms"]
+                                 if prof["kernel_count"] else None),
+           "sim_days_p50": tor.bands["sim_days"]["p50"],
+           "lane0": {k: lane0[k] for k in ("match", "backend", "seed")}}
+    log("[6] ensemble: " + json.dumps(out))
+    return out
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -429,22 +718,31 @@ def main() -> None:
     from repro_torch.core import campaign, integrity
     from repro_torch.core.transport import _CHUNK_BYTES
     from repro_torch.data.staging import StagingArea
+    from repro_torch.ensemble import engine as ens_engine
+    from repro_torch.ensemble import run as ens_run
     from repro_torch.kernels.checksum import checksum as kernel
     from repro_torch.kernels.checksum import ops, ref
+    from repro_torch.kernels.lane_step import lane_step as lane_kernel
+    from repro_torch.kernels.lane_step import ref as lane_ref
+    from repro_torch.scenarios import registry
 
     t0 = time.perf_counter()
-    card = phase_device_and_build(torch, kernel)
+    card = phase_device_and_build(torch, (kernel, lane_kernel))
     entry = phase_kernel(torch, np, kernel, ref, ops, integrity, card)
     staging = phase_staging(torch, np, kernel, ref, integrity, StagingArea,
-                            _CHUNK_BYTES)
+                            _CHUNK_BYTES, lane_kernel)
     entry["launches"] = staging["launches"]
     check(entry["launches"] > 0, "the main path never launched the kernel")
     phase_campaign(campaign)
+    lane_entry = phase_lane_step(torch, np, lane_kernel, lane_ref, card)
+    ensemble = phase_ensemble(torch, ens_engine, ens_run, registry,
+                              lane_kernel, kernel)
+    lane_entry["launches"] = ensemble["launches"]
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "repro"))
     check(not leaked, f"JAX-side modules were imported: {leaked}")
     log(f"total wall {time.perf_counter() - t0:.1f} s")
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    print(json.dumps({"kernels": [entry, lane_entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -25,11 +25,11 @@ import os
 from dataclasses import dataclass, field
 from typing import Dict, Iterable, Optional, Tuple
 
-from repro_torch.kernels.checksum.ops import (Device, accumulator_value,
+from repro_torch.kernels.checksum.ops import (accumulator_value,
                                               checksum_bytes, fold_words,
-                                              new_accumulator, require_device,
-                                              words_tensor)
+                                              new_accumulator, words_tensor)
 from repro_torch.kernels.checksum.ref import finalize32_np
+from repro_torch.kernels.device import Device, require_device
 
 _SCAN_CHUNK = 4 * 1024 * 1024
 

@@ -65,7 +65,7 @@ from repro_torch.core.integrity import (Manifest, StreamingChecksum,
 from repro_torch.core.pause import DAY, PauseManager
 from repro_torch.core.routes import Dataset, RouteGraph, fair_share_rates
 from repro_torch.core.transfer_table import Status
-from repro_torch.kernels.checksum.ops import Device, require_device
+from repro_torch.kernels.device import Device, require_device
 
 
 class SimClock:

@@ -17,7 +17,7 @@ from repro_torch.core.routes import Dataset
 from repro_torch.core.scheduler import ReplicationPolicy, ReplicationScheduler
 from repro_torch.core.transfer_table import Status, TransferTable
 from repro_torch.core.transport import LocalFSTransport
-from repro_torch.kernels.checksum.ops import Device
+from repro_torch.kernels.device import Device
 
 
 @dataclass

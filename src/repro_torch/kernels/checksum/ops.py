@@ -11,7 +11,7 @@ byte length is folded into the finalizer.
 from __future__ import annotations
 
 import warnings
-from typing import Optional, Union
+from typing import Optional
 
 import numpy as np
 import torch
@@ -19,19 +19,7 @@ import torch
 from repro_torch.kernels.checksum.checksum import fold_words_cuda
 from repro_torch.kernels.checksum.ref import (MASK32, bytes_to_words,
                                               finalize32_np, fold_words_torch)
-
-Device = Union[str, torch.device]
-
-
-def require_device(device: Device) -> torch.device:
-    """``device`` as a ``torch.device``; a CUDA device without CUDA raises
-    instead of quietly running on the CPU."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device={str(device)!r} was requested but CUDA is not available; "
-            "pass device='cpu' to hash with the plain PyTorch version")
-    return dev
+from repro_torch.kernels.device import Device, require_device
 
 
 def words_tensor(data: bytes, n_words: int, device: torch.device

@@ -23,6 +23,7 @@ from repro_torch.kernels.checksum import ref
 from repro_torch.kernels.checksum.ops import (accumulator_value,
                                               checksum_bytes, checksum_tensor,
                                               fold_words)
+from repro_torch.kernels.nvcc import find_nvcc
 
 # the sizes of tests/test_kernels.py::test_checksum_matches_refs
 SIZES = [0, 1, 3, 4, 7, 100, 4096, 65536, 131072 * 4 + 5, 1_000_003,
@@ -119,18 +120,18 @@ def test_kernel_wrapper_raises_instead_of_falling_back(case):
 
 
 def test_build_command_targets_hopper_from_package_source():
-    cmd = kernel.nvcc_command("nvcc", Path("out.so"))
+    cmd = kernel.LIBRARY.nvcc_command("nvcc", Path("out.so"))
     assert "arch=compute_90a,code=sm_90a" in cmd
     assert "-shared" in cmd and "-fPIC" in cmd
     src = Path(cmd[-1])
     assert src.name == "checksum.cu" and src.is_file()
     pkg = Path(kernel.__file__).resolve().parent
     assert pkg in src.parents
-    assert kernel.library_path().parent == pkg / "build"
+    assert kernel.LIBRARY.library_path().parent == pkg / "build"
 
 
 def test_find_nvcc_raises_without_toolkit(tmp_path, monkeypatch):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setenv("PATH", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc"):
-        kernel.find_nvcc()
+        find_nvcc()
