@@ -5,10 +5,11 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It needs one CUDA card and ``nvcc``; it builds the port's kernels (the
-integrity hash and the lane segment step) from the repository's own
-sources, both at once, on first use.  Phases, each of which ends the run
-with a non-zero exit code if it fails:
+It needs one CUDA card and ``nvcc``; it builds the port's four kernels (the
+integrity hash, the lane segment step, flash attention and the selective
+scan) from the repository's own sources, all at once, one ``nvcc`` each, on
+first use.  Phases, each of which ends the run with a non-zero exit code if
+it fails, and each of which prints its wall time:
 
 1. Device and build: the card's name and power limit, the kernels' builds
    with their registers and spills.
@@ -34,9 +35,32 @@ with a non-zero exit code if it fails:
    the bands must be equal, lane 0 must pass ``check_lane0`` on the card,
    and the kernel must launch once per segment step; with each backend's
    wall time, the per-tick split and the device's busy share.
+7. Flash attention: the kernel against its plain PyTorch version on the
+   card (2.5e-2 in bf16, 2e-5 in f32, ``tests/test_kernels.py``'s
+   tolerances) at smollm-135m's serve shape, a ragged T, a window, f32, and
+   one train_4k sequence at qwen3-14b's heads, and over strided KV-cache
+   views; with the kernel's, the plain version's and
+   ``scaled_dot_product_attention``'s times beside the kernel's bound.
+8. Selective scan: the kernel against its plain PyTorch version on the card
+   (rtol/atol 1e-4) at falcon-mamba-7b's serve shape, a ragged shape and
+   the split in halves; times beside the bound.
+9. Serving, the third main path: smollm-135m and falcon-mamba-7b at their
+   published configs with all layers, weights from the port's seeded init
+   on the card, 8 requests through ``launch.serve`` and ``Engine`` (4
+   slots, prompts of 4 to 255 tokens, 16 new tokens); every request must
+   return 16 tokens, and flash attention must launch once per layer per
+   prefill wave (smollm) and the scan likewise (falcon-mamba).  At full
+   width and depth, prefill plus decode must match the forward at
+   tests/test_models.py's tolerances with f32 weights (in bf16 the same
+   errors are printed, beside the drift between two forwards of another
+   length, which already exceeds those tolerances at 64 layers), and a
+   2-layer cut
+   must give the same prefill logits on the CPU (plain versions) and on the
+   card (kernels).  With prefill ms per wave, decode ms per token, tokens/s
+   and the card's busy share.
 
-Each main path (phases 3 and 6) is driven with every kernel's launch count
-set to 0 just before it and read just after.  It prints one
+Each main path (phases 3, 6 and 9) is driven with every kernel's launch
+count set to 0 just before it and read just after.  It prints one
 ``{"kernels": [...]}`` JSON line and, last, the result line
 ``{"ok": true, "device": {...}}``.  It imports neither JAX nor the JAX
 package.
@@ -708,13 +732,351 @@ def phase_ensemble(torch, ens_engine, ens_run, registry, kernel,
     return out
 
 
+# ------------------------------------------------------ flash attention (B3)
+# H100 SXM published peaks beside PEAK_BYTES_PER_S: 989 TFLOP/s dense bf16 on
+# the tensor cores, 67 TFLOP/s fp32 outside them; the special-function units
+# give 16 exp per SM per clock (132 SMs x 1.98 GHz)
+PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12
+PEAK_SFU_PER_S = 132 * 16 * 1.98e9
+ATTN_TOL = {"bfloat16": 2.5e-2, "float32": 2e-5}   # tests/test_kernels.py
+# (label, B, T, H, Hkv, hd, window, dtype); "main" is smollm-135m's serve
+# shape, "train_4k" one sequence of train_4k at qwen3-14b's heads
+FLASH_CASES = [("main", 4, 256, 9, 3, 64, None, "bfloat16"),
+               ("ragged_T200", 2, 200, 9, 3, 64, None, "bfloat16"),
+               ("window128_hd128", 1, 384, 2, 2, 128, 128, "bfloat16"),
+               ("f32_window64", 2, 256, 8, 8, 32, 64, "float32"),
+               ("train_4k", 1, 4096, 40, 8, 128, None, "bfloat16")]
+
+
+def attention_pairs(T: int, window) -> int:
+    """(query, key) pairs the causal (windowed) mask keeps."""
+    return sum(min(t + 1, window or t + 1) for t in range(T))
+
+
+def flash_bound(B, T, H, Hkv, hd, window, elt: int, flops_per_s: float):
+    """Least time (ms) for the attention: QK^T and PV at 2 FLOPs per
+    multiply-add over the kept pairs, against q, k, v read once and o
+    written once."""
+    flops = 4 * B * H * hd * attention_pairs(T, window)
+    n_bytes = elt * (2 * B * T * H * hd + 2 * B * T * Hkv * hd)
+    return roofline(n_bytes, flops, flops_per_s)
+
+
+def phase_flash(torch, kernel, ref, card: str) -> dict:
+    """B3: kernel == plain PyTorch version on the card, at the main path's
+    shapes; with the kernel's, the plain version's and SDPA's times."""
+    import torch.nn.functional as F
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    max_err = 0.0
+    timings = {}
+    for label, B, T, H, Hkv, hd, window, dname in FLASH_CASES:
+        dtype = getattr(torch, dname)
+        q = torch.randn(B, T, H, hd, generator=gen, device=dev).to(dtype)
+        k, v = (torch.randn(B, T, Hkv, hd, generator=gen, device=dev)
+                .to(dtype) for _ in range(2))
+        got = kernel.flash_attention_cuda(q, k, v, window)
+        plain = ref.attention_torch(q, k, v, window)
+        torch.cuda.synchronize()
+        err = (got.float() - plain.float()).abs().max().item()
+        max_err = max(max_err, err)
+        tol = ATTN_TOL[dname]
+        check(torch.allclose(got.float(), plain.float(), atol=tol, rtol=tol),
+              f"flash {label}: kernel differs from the plain version "
+              f"(max err {err}, tol {tol})")
+        if label == "main":
+            # the prefill reads k and v as slices of a longer KV cache
+            kc, vc = (torch.zeros(B, 4 * T, Hkv, hd, dtype=dtype, device=dev)
+                      for _ in range(2))
+            kc[:, :T], vc[:, :T] = k, v
+            view = kernel.flash_attention_cuda(q, kc[:, :T], vc[:, :T])
+            check(torch.equal(view, got), "flash over cache views differs")
+        it = 3 if label == "train_4k" else 20
+        b_ms, b_by = flash_bound(B, T, H, Hkv, hd, window, q.element_size(),
+                                 PEAK_BF16_FLOPS if dname == "bfloat16"
+                                 else PEAK_FP32_FLOPS)
+        kfn = lambda: kernel.flash_attention_cuda(q, k, v, window)  # noqa
+        prof = profiled(torch, kfn, it, kernel_name="flash_fwd_kernel")
+        k_ms, source = kernel_time(prof, cuda_ms(torch, kfn, it))
+        lib_ms = None
+        if window is None:
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), it)
+        timings[label] = {
+            "shape": [B, T, H, Hkv, hd], "window": window, "dtype": dname,
+            "max_abs_err": err, "ms": k_ms, "ms_source": source,
+            "plain_ms": cuda_ms(torch, lambda: ref.attention_torch(
+                q, k, v, window), max(2, it // 4)),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "roofline_share": b_ms / k_ms}
+        log(f"[7] flash {label}: " + json.dumps(timings[label]))
+    main = timings["main"]
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                      "flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/"
+                        "flash_attention.py:31",
+            "launches": None, "max_abs_err": max_err,
+            "ms": main["ms"], "ms_source": main["ms_source"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "library": "F.scaled_dot_product_attention(is_causal=True, "
+                       "enable_gqa=True)",
+            "shape": "smollm-135m serve [B=4, T=256, H=9, Hkv=3, hd=64] bf16",
+            "at_train_4k": timings["train_4k"], "cases": timings,
+            "card": card}
+
+
+# ------------------------------------------------------ selective scan (B4)
+# (label, B, T, D, N); "main" is falcon-mamba-7b's serve shape
+SCAN_CASES = [("main", 4, 256, 8192, 16), ("ragged", 1, 100, 300, 8)]
+
+
+def scan_inputs(torch, gen, B, T, D, N, zero_h0=False):
+    """Drawn as tests/test_kernels.py draws them, on the card."""
+    dev = gen.device
+    u = torch.randn(B, T, D, generator=gen, device=dev)
+    dt = 0.01 + 0.19 * torch.rand(B, T, D, generator=gen, device=dev)
+    Bm, Cm = (torch.randn(B, T, N, generator=gen, device=dev)
+              for _ in range(2))
+    A = -(0.5 + 1.5 * torch.rand(D, N, generator=gen, device=dev))
+    h0 = (torch.zeros(B, D, N, device=dev) if zero_h0 else
+          torch.randn(B, D, N, generator=gen, device=dev))
+    return u, dt, Bm, Cm, A, h0
+
+
+def scan_bound(B, T, D, N):
+    """Least time (ms) for the scan: u, dt, Bm, Cm, A, h0 read and y, hT
+    written once, against one exp per (b, t, d, n) at the SFU rate."""
+    n_bytes = 4 * (3 * B * T * D + 2 * B * T * N + D * N + 2 * B * D * N)
+    return roofline(n_bytes, B * T * D * N, PEAK_SFU_PER_S)
+
+
+def phase_scan(torch, kernel, ref, card: str) -> dict:
+    """B4: kernel == plain PyTorch version on the card at rtol/atol 1e-4,
+    with the split-in-halves continuity; times beside the bound."""
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    max_err = 0.0
+
+    def close(got, want, what):
+        nonlocal max_err
+        err = (got - want).abs().max().item()
+        max_err = max(max_err, err)
+        check(torch.allclose(got, want, rtol=1e-4, atol=1e-4),
+              f"scan {what}: kernel differs from the plain version "
+              f"(max err {err})")
+
+    timings = {}
+    for label, B, T, D, N in SCAN_CASES:
+        ins = scan_inputs(torch, gen, B, T, D, N)
+        y, hT = kernel.selective_scan_cuda(*ins)
+        y2, h2 = ref.selective_scan_torch(*ins)
+        close(y, y2, f"{label} y")
+        close(hT, h2, f"{label} hT")
+        it = 20
+        b_ms, b_by = scan_bound(B, T, D, N)
+        kfn = lambda: kernel.selective_scan_cuda(*ins)  # noqa: E731
+        prof = profiled(torch, kfn, it, kernel_name="selective_scan_kernel")
+        k_ms, source = kernel_time(prof, cuda_ms(torch, kfn, it))
+        timings[label] = {
+            "shape": [B, T, D, N], "ms": k_ms, "ms_source": source,
+            "plain_ms": cuda_ms(torch, lambda: ref.selective_scan_torch(*ins),
+                                2),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "bytes_ms": 4 * (3 * B * T * D + 2 * B * T * N + D * N
+                             + 2 * B * D * N) / PEAK_BYTES_PER_S * 1e3,
+            "exp_ms": B * T * D * N / PEAK_SFU_PER_S * 1e3,
+            "roofline_share": b_ms / k_ms}
+        log(f"[8] scan {label}: " + json.dumps(timings[label]))
+    # scanning [0:T] equals [0:T/2] then [T/2:T] with the state carried
+    u, dt, Bm, Cm, A, h0 = scan_inputs(torch, gen, 4, 256, 8192, 16,
+                                       zero_h0=True)
+    y_full, h_full = kernel.selective_scan_cuda(u, dt, Bm, Cm, A, h0)
+    ya, ha = kernel.selective_scan_cuda(u[:, :128], dt[:, :128],
+                                        Bm[:, :128], Cm[:, :128], A, h0)
+    yb, hb = kernel.selective_scan_cuda(u[:, 128:], dt[:, 128:],
+                                        Bm[:, 128:], Cm[:, 128:], A, ha)
+    close(torch.cat([ya, yb], 1), y_full, "halves y")
+    close(hb, h_full, "halves hT")
+    log(f"[8] scan: kernel == plain PyTorch (rtol/atol 1e-4) on "
+        f"{len(SCAN_CASES)} shapes and the split in halves "
+        f"(max_abs_err {max_err})")
+    main = timings["main"]
+    return {"name": "selective_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu",
+            "replaces": "src/repro/kernels/mamba_scan/mamba_scan.py:30",
+            "launches": None, "max_abs_err": max_err,
+            "ms": main["ms"], "ms_source": main["ms_source"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": None,
+            "library": "none: no single PyTorch call computes this scan",
+            "shape": "falcon-mamba-7b serve [B=4, T=256, D=8192, N=16] f32",
+            "cases": timings, "card": card}
+
+
+# ------------------------------------------------------------ serving (3rd)
+# (arch, layers, the kernel its prefill launches, that kernel's name)
+SERVE_ARCHS = (("smollm-135m", 30, "flash", "flash_fwd_kernel"),
+               ("falcon-mamba-7b", 64, "scan", "selective_scan_kernel"))
+SERVE = dict(requests=8, max_new=16, max_batch=4, max_seq=1024)
+PREFILL_TOL = dict(atol=0.12, rtol=0.05)   # tests/test_models.py, bf16
+DECODE_TOL = dict(atol=0.5, rtol=0.03)
+
+
+def device_busy_ms(torch, prof) -> float:
+    """Device time of every kernel, copy and fill the profiler recorded."""
+    from torch.autograd import DeviceType
+    return sum(e.self_device_time_total for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / 1e3
+
+
+def allclose(torch, got, want, tol, what: str) -> float:
+    """The largest difference, after checking |got - want| <= atol + rtol *
+    |want| everywhere."""
+    got, want = got.float().cpu(), want.float().cpu()
+    err = (got - want).abs().max().item()
+    check(torch.allclose(got, want, **tol),
+          f"{what}: max err {err} beyond {tol}")
+    return err
+
+
+def consistency(torch, model, toks, check_tol: bool) -> dict:
+    """prefill(T-8) + 8 decode steps against the forward over T tokens, and
+    the forward over T-8 tokens against the first T-8 of that forward (the
+    same sums in matmuls of another shape).  Asserted at
+    tests/test_models.py's tolerances when ``check_tol``."""
+    T = toks.shape[1]
+    Tp = T - 8
+    full = model(toks).float()
+    short = model(toks[:, :Tp]).float()
+    logits, cache = model.prefill(toks[:, :Tp],
+                                  model.init_cache(toks.shape[0], T + 8))
+    errs = {"forward_short_vs_long": (short - full[:, :Tp]).abs().max()
+            .item(),
+            "prefill": (logits[:, 0].float() - full[:, Tp - 1]).abs().max()
+            .item(), "decode": 0.0}
+    if check_tol:
+        allclose(torch, logits[:, 0], full[:, Tp - 1], PREFILL_TOL,
+                 "prefill vs forward")
+    for t in range(Tp, T):
+        lg, cache = model.decode_step(cache, toks[:, t:t + 1], t)
+        errs["decode"] = max(errs["decode"], (lg[:, 0].float() - full[:, t])
+                             .abs().max().item())
+        if check_tol:
+            allclose(torch, lg[:, 0], full[:, t], DECODE_TOL,
+                     f"decode t={t} vs forward")
+    return errs
+
+
+def phase_serve(torch, get_config, LM, launch_serve, Engine, flash, scan,
+                others) -> dict:
+    """The third main path: full-width serving of smollm-135m and
+    falcon-mamba-7b through the engine on the card, with every count set to
+    0 just before each run and read just after."""
+    from torch.profiler import ProfilerActivity, profile
+    out = {}
+    for arch, n_layers, kernel_key, kernel_name in SERVE_ARCHS:
+        cfg = get_config(arch)
+        check(cfg.n_layers == n_layers, f"{arch} has {cfg.n_layers} layers")
+        t0 = time.perf_counter()
+        model = LM(cfg, device=DEVICE, seed=SEED)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        eng = Engine(cfg, model=model, max_batch=SERVE["max_batch"],
+                     max_seq=SERVE["max_seq"])
+        for k in (flash, scan, *others):
+            k.launches = 0                                   # path starts
+        eng, done, wall = launch_serve.serve(cfg, SERVE["requests"],
+                                             SERVE["max_new"], engine=eng,
+                                             seed=SEED)
+        torch.cuda.synchronize()
+        launches = {"flash": flash.launches, "scan": scan.launches}
+        stray = sum(k.launches for k in others)              # path ends
+        check(len(done) == SERVE["requests"] and all(
+            r.done and len(r.out_tokens) == SERVE["max_new"] for r in done),
+            f"{arch}: not every request returned {SERVE['max_new']} tokens")
+        want = dict({"flash": 0, "scan": 0},
+                    **{kernel_key: eng.waves * n_layers})
+        check(launches == want and stray == 0,
+              f"{arch}: launches {launches} (others {stray}), want {want} "
+              f"for {eng.waves} prefill waves x {n_layers} layers")
+        tokens = sum(len(r.out_tokens) for r in done)
+        pre_s, dec_s = eng.stats["prefill_s"], eng.stats["decode_s"]
+        waves = eng.waves
+
+        # the card's busy share over a second, profiled run
+        eng2 = Engine(cfg, model=model, max_batch=SERVE["max_batch"],
+                      max_seq=SERVE["max_seq"])
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            launch_serve.serve(cfg, SERVE["requests"], SERVE["max_new"],
+                               engine=eng2, seed=SEED)
+            torch.cuda.synchronize()
+            prof_wall = (time.perf_counter() - t1) * 1e3
+        busy = device_busy_ms(torch, prof)
+        kern = sum(a.self_device_time_total for a in prof.key_averages()
+                   if kernel_name in a.key) / 1e3
+
+        # at full width: prefill(T-k) + k decode steps against the forward.
+        # In bf16 over 64 random layers, two forwards of the same tokens in
+        # matmuls of another shape already differ by more than the bf16
+        # tolerances (forward_short_vs_long), so the check is asserted on
+        # the same model in f32, where only the paths' sum orders differ
+        toks = torch.randint(0, cfg.vocab_size, (2, 32), device=DEVICE,
+                             generator=torch.Generator(device=DEVICE)
+                             .manual_seed(SEED + 9))
+        bf16_errs = consistency(torch, model, toks, check_tol=False)
+        del model, eng, eng2
+        torch.cuda.empty_cache()
+        model = LM(cfg, dtype=torch.float32, device=DEVICE, seed=SEED)
+        f32_errs = consistency(torch, model, toks, check_tol=True)
+        del model
+        torch.cuda.empty_cache()
+
+        # a 2-layer cut at full width: plain versions on the CPU against the
+        # kernels on the card, from the same weights
+        cut = cfg.with_(n_layers=2)
+        on_card = LM(cut, device=DEVICE, seed=SEED + 1)
+        on_cpu = LM(cut, device="cpu", params=on_card.params("cpu"))
+        lg_card, _ = on_card.prefill(toks, on_card.init_cache(2, 64))
+        lg_cpu, _ = on_cpu.prefill(toks.cpu(), on_cpu.init_cache(2, 64))
+        err_cut = allclose(torch, lg_card, lg_cpu, PREFILL_TOL,
+                           "2-layer cut, card vs CPU")
+        del on_card, on_cpu
+        torch.cuda.empty_cache()
+
+        out[arch] = {
+            "layers": n_layers, "init_s": init_s, "requests": len(done),
+            "tokens": tokens, "waves": waves, "launches": launches,
+            "wall_s": wall, "tokens_per_s": tokens / wall,
+            "prefill_ms_per_wave": [x * 1e3 for x in pre_s],
+            "decode_ms_per_step": sum(dec_s) * 1e3 / len(dec_s),
+            "decode_ms_per_token": sum(dec_s) * 1e3 / (tokens - len(done)),
+            "profiled_wall_ms": prof_wall, "device_busy_ms": busy,
+            "device_busy_share": busy / prof_wall,
+            "kernel_ms": kern, "kernel_share_of_busy": kern / busy if busy
+            else None,
+            "consistency_max_err": {"f32": f32_errs, "bf16": bf16_errs},
+            "cut_2_layers_cpu_vs_card_max_err": err_cut}
+        log(f"[9] serve {arch}: " + json.dumps(out[arch]))
+    return out
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA "
              "GPU")
+    # f32 matmuls and convolutions in full f32 (the f32 comparisons)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     import numpy as np
 
+    from repro_torch.configs import get_config
     from repro_torch.core import campaign, integrity
     from repro_torch.core.transport import _CHUNK_BYTES
     from repro_torch.data.staging import StagingArea
@@ -722,27 +1084,60 @@ def main() -> None:
     from repro_torch.ensemble import run as ens_run
     from repro_torch.kernels.checksum import checksum as kernel
     from repro_torch.kernels.checksum import ops, ref
+    from repro_torch.kernels.flash_attention import flash_attention as flash
+    from repro_torch.kernels.flash_attention import ref as flash_ref
     from repro_torch.kernels.lane_step import lane_step as lane_kernel
     from repro_torch.kernels.lane_step import ref as lane_ref
+    from repro_torch.kernels.mamba_scan import mamba_scan as scan
+    from repro_torch.kernels.mamba_scan import ref as scan_ref
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models.model import LM
     from repro_torch.scenarios import registry
+    from repro_torch.serve.engine import Engine
 
     t0 = time.perf_counter()
-    card = phase_device_and_build(torch, (kernel, lane_kernel))
-    entry = phase_kernel(torch, np, kernel, ref, ops, integrity, card)
-    staging = phase_staging(torch, np, kernel, ref, integrity, StagingArea,
-                            _CHUNK_BYTES, lane_kernel)
+    walls = {}
+
+    def timed(label, fn, *args):
+        t = time.perf_counter()
+        result = fn(*args)
+        walls[label] = time.perf_counter() - t
+        log(f"[{label}] phase wall {walls[label]:.1f} s")
+        return result
+
+    card = timed(1, phase_device_and_build, torch,
+                 (kernel, lane_kernel, flash, scan))
+    entry = timed(2, phase_kernel, torch, np, kernel, ref, ops, integrity,
+                  card)
+    flash.launches = scan.launches = 0
+    staging = timed(3, phase_staging, torch, np, kernel, ref, integrity,
+                    StagingArea, _CHUNK_BYTES, lane_kernel)
+    check(flash.launches == scan.launches == 0,
+          "staging launched a model kernel")
     entry["launches"] = staging["launches"]
     check(entry["launches"] > 0, "the main path never launched the kernel")
-    phase_campaign(campaign)
-    lane_entry = phase_lane_step(torch, np, lane_kernel, lane_ref, card)
-    ensemble = phase_ensemble(torch, ens_engine, ens_run, registry,
-                              lane_kernel, kernel)
+    timed(4, phase_campaign, campaign)
+    lane_entry = timed(5, phase_lane_step, torch, np, lane_kernel, lane_ref,
+                       card)
+    flash.launches = scan.launches = 0
+    ensemble = timed(6, phase_ensemble, torch, ens_engine, ens_run, registry,
+                     lane_kernel, kernel)
+    check(flash.launches == scan.launches == 0,
+          "the ensemble launched a model kernel")
     lane_entry["launches"] = ensemble["launches"]
+    flash_entry = timed(7, phase_flash, torch, flash, flash_ref, card)
+    scan_entry = timed(8, phase_scan, torch, scan, scan_ref, card)
+    served = timed(9, phase_serve, torch, get_config, LM, launch_serve,
+                   Engine, flash, scan, (kernel, lane_kernel))
+    flash_entry["launches"] = served["smollm-135m"]["launches"]["flash"]
+    scan_entry["launches"] = served["falcon-mamba-7b"]["launches"]["scan"]
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "repro"))
     check(not leaked, f"JAX-side modules were imported: {leaked}")
+    log(f"phase walls (s): {json.dumps(walls)}")
     log(f"total wall {time.perf_counter() - t0:.1f} s")
-    print(json.dumps({"kernels": [entry, lane_entry]}), flush=True)
+    print(json.dumps({"kernels": [entry, lane_entry, flash_entry,
+                                  scan_entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

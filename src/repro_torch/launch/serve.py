@@ -1,0 +1,87 @@
+"""Serving launcher: initialise a model and serve a batch of requests.
+
+    python -m repro_torch.launch.serve --arch falcon-mamba-7b --requests 8
+        [--max-new 16] [--max-batch 4] [--max-seq 256] [--full]
+        [--device cuda|cpu] [--seed 0]
+
+The flags are the JAX package's launcher's, plus ``--device`` (default
+``cuda``; ``cpu`` runs the kernels' plain versions).  Weights are drawn from
+``--seed`` by the port's own init; ``--smoke`` (the default) serves the
+reduced config, ``--full`` the published one.  ``--ckpt-dir`` is refused:
+restoring a checkpoint waits for the port of ``checkpoint/ckpt.py`` (ROADMAP
+Queue A, step 8).
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+from typing import List, Optional, Tuple
+
+import numpy as np
+
+from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.kernels.device import Device
+from repro_torch.models.config import ModelConfig
+from repro_torch.serve.engine import Engine, Request
+
+
+def prompts(cfg: ModelConfig, n: int, max_seq: int, seed: int
+            ) -> List[np.ndarray]:
+    """``n`` prompts of 4 to max_seq/4 tokens, drawn as the JAX package's
+    launcher draws them."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        plen = int(rng.integers(4, max_seq // 4))
+        out.append(rng.integers(0, cfg.vocab_size, plen))
+    return out
+
+
+def serve(cfg: ModelConfig, requests: int = 8, max_new: int = 16,
+          max_batch: int = 4, max_seq: int = 256, device: Device = "cuda",
+          seed: int = 0, engine: Optional[Engine] = None
+          ) -> Tuple[Engine, List[Request], float]:
+    """Serve ``requests`` seeded prompts through ``engine`` (a new one on
+    ``device`` with weights from ``seed`` by default); (engine, finished
+    requests, wall seconds)."""
+    eng = engine if engine is not None else Engine(
+        cfg, max_batch=max_batch, max_seq=max_seq, device=device, seed=seed)
+    t0 = time.perf_counter()
+    for prompt in prompts(cfg, requests, eng.S, seed):
+        eng.submit(prompt, max_new_tokens=max_new)
+    done = eng.run_to_completion()
+    return eng, done, time.perf_counter() - t0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True, choices=ARCH_IDS)
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--max-batch", type=int, default=4)
+    ap.add_argument("--max-seq", type=int, default=256)
+    ap.add_argument("--smoke", action="store_true", default=True)
+    ap.add_argument("--full", dest="smoke", action="store_false")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    if args.ckpt_dir:
+        ap.error("--ckpt-dir: restoring a checkpoint is not ported yet "
+                 "(ROADMAP Queue A, step 8: checkpoint/ckpt.py)")
+
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = cfg.smoke()
+    eng, done, wall = serve(cfg, args.requests, args.max_new, args.max_batch,
+                            args.max_seq, args.device, args.seed)
+    toks = sum(len(r.out_tokens) for r in done)
+    print(f"served {len(done)} requests / {toks} tokens in {wall:.1f}s "
+          f"({eng.waves} waves, {toks / max(wall, 1e-9):.1f} tok/s, "
+          f"{args.device})")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,234 @@
+"""Unified model configuration covering all assigned architectures.
+
+One dataclass describes every architecture in the pool (dense GQA, MLA+MoE,
+sliding-window/global hybrids, Mamba1/2 SSMs, Zamba2-style shared-attention
+hybrids, multi-codebook audio LMs, M-RoPE VLM backbones).  The block pattern is
+derived from the config; models are built by ``repro_torch.models.model``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head Latent Attention (DeepSeek-V2)."""
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    q_lora_rank: Optional[int] = None  # V2-Lite: no q compression
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_routed: int = 64
+    top_k: int = 6
+    n_shared: int = 0              # shared (always-on) experts
+    d_ff_expert: int = 1408
+    capacity_factor: float = 1.25
+    first_dense_layers: int = 0    # leading dense layers (deepseek-v2)
+    d_ff_dense: int = 0            # ffn width of those dense layers
+    router_norm_topk: bool = True  # normalize top-k weights to sum to 1
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    version: int = 1               # 1 = Mamba (S6), 2 = Mamba2 (SSD)
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    headdim: int = 64              # mamba2 only
+    n_groups: int = 1              # mamba2 B/C groups
+    chunk: int = 256               # SSD chunk length
+
+
+@dataclass(frozen=True)
+class HybridConfig:
+    """Zamba2-style weight-shared attention block interleaved with SSM layers."""
+    shared_attn_every: int = 6     # invoke the shared block after every N ssm layers
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                    # dense | moe | ssm | hybrid | vlm | audio
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0              # 0 -> d_model // n_heads
+    # --- attention options -------------------------------------------------
+    rope_theta: float = 10000.0
+    qk_norm: bool = False
+    sliding_window: Optional[int] = None      # window size for local layers
+    local_global_ratio: int = 0               # N local : 1 global (0 = all global)
+    mla: Optional[MLAConfig] = None
+    mrope: bool = False                       # 3-section M-RoPE (qwen2-vl)
+    mrope_sections: Tuple[int, int, int] = (16, 24, 24)
+    # --- mixture / ssm / hybrid -------------------------------------------
+    moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    hybrid: Optional[HybridConfig] = None
+    # --- io ----------------------------------------------------------------
+    n_codebooks: int = 1                      # musicgen: 4 parallel EnCodec books
+    tie_embeddings: bool = False
+    embed_inputs: bool = True                 # False -> frontend supplies embeddings
+    # --- numerics / misc ----------------------------------------------------
+    norm_eps: float = 1e-5
+    max_seq_len: int = 8192
+    subquadratic: bool = False                # eligible for long_500k decode
+    notes: str = ""
+
+    def __post_init__(self):
+        if self.head_dim == 0 and self.n_heads > 0:
+            object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
+
+    # ------------------------------------------------------------------ util
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    def layer_kinds(self) -> Tuple[str, ...]:
+        """Per-layer block kinds, length n_layers.
+
+        Kinds: 'attn' (global), 'local' (sliding window), 'ssm', 'shared_attn'
+        (zamba2 shared block call-site marker — not counted in n_layers; see
+        blocks.py which inserts call-sites between ssm layers).
+        """
+        if self.family == "ssm":
+            return ("ssm",) * self.n_layers
+        if self.hybrid is not None:
+            return ("ssm",) * self.n_layers
+        if self.local_global_ratio > 0:
+            r = self.local_global_ratio
+            kinds = []
+            for i in range(self.n_layers):
+                kinds.append("attn" if (i % (r + 1)) == r else "local")
+            return tuple(kinds)
+        return ("attn",) * self.n_layers
+
+    def with_(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+    # Reduced config of the same family for CPU smoke tests.
+    def smoke(self) -> "ModelConfig":
+        kw = dict(
+            n_layers=min(self.n_layers, 4),
+            d_model=128,
+            n_heads=4,
+            n_kv_heads=min(4, max(1, self.n_kv_heads // max(1, self.n_heads // 4))) if self.n_kv_heads else 0,
+            head_dim=32,
+            d_ff=256,
+            vocab_size=512,
+            max_seq_len=128,
+        )
+        if self.local_global_ratio > 0:
+            kw["n_layers"] = self.local_global_ratio + 1  # one full pattern group
+            kw["sliding_window"] = 16
+        if self.moe is not None:
+            kw["moe"] = dataclasses.replace(
+                self.moe, n_routed=8, top_k=2,
+                d_ff_expert=64,
+                d_ff_dense=128 if self.moe.d_ff_dense else 0)
+        if self.ssm is not None:
+            kw["ssm"] = dataclasses.replace(self.ssm, d_state=8, headdim=16, chunk=32)
+        if self.hybrid is not None:
+            kw["n_layers"] = 4
+            kw["hybrid"] = dataclasses.replace(self.hybrid, shared_attn_every=2)
+        if self.mla is not None:
+            kw["mla"] = dataclasses.replace(
+                self.mla, kv_lora_rank=64, qk_nope_head_dim=32,
+                qk_rope_head_dim=16, v_head_dim=32)
+        if self.mrope:
+            hd2 = kw["head_dim"] // 2
+            s = hd2 // 4
+            kw["mrope_sections"] = (hd2 - 2 * s, s, s)
+        return self.with_(**kw, name=self.name + "-smoke")
+
+
+def param_count(cfg: ModelConfig) -> Tuple[int, int]:
+    """(total_params, active_params) — analytic, for roofline MODEL_FLOPS."""
+    d = cfg.d_model
+    total = 0
+    active = 0
+    # embeddings
+    # the token embedding exists even for stub-frontend archs (decode path)
+    emb = cfg.vocab_size * d * cfg.n_codebooks
+    unemb = 0 if cfg.tie_embeddings else cfg.vocab_size * d * cfg.n_codebooks
+    total += emb + unemb
+    active += emb + unemb
+
+    def attn_params() -> int:
+        if cfg.mla is not None:
+            m = cfg.mla
+            qk_hd = m.qk_nope_head_dim + m.qk_rope_head_dim
+            p = d * cfg.n_heads * qk_hd                       # W_q
+            p += d * (m.kv_lora_rank + m.qk_rope_head_dim)    # W_dkv (+ rope k)
+            p += m.kv_lora_rank * cfg.n_heads * (m.qk_nope_head_dim + m.v_head_dim)
+            p += cfg.n_heads * m.v_head_dim * d               # W_o
+            return p
+        hd = cfg.head_dim
+        return d * hd * (cfg.n_heads * 2 + cfg.n_kv_heads * 2)
+
+    def mlp_params(ff: int) -> int:
+        return 3 * d * ff  # gated (SwiGLU): up, gate, down
+
+    def ssm_params() -> int:
+        s = cfg.ssm
+        d_in = s.expand * d
+        if s.version == 1:
+            dt_rank = max(1, d // 16)
+            p = d * 2 * d_in                    # in_proj (x, z)
+            p += s.d_conv * d_in                # conv
+            p += d_in * (dt_rank + 2 * s.d_state)  # x -> (dt, B, C)
+            p += dt_rank * d_in                 # dt_proj
+            p += d_in * s.d_state               # A
+            p += d_in                           # D
+            p += d_in * d                       # out_proj
+            return p
+        nheads = d_in // s.headdim
+        conv_dim = d_in + 2 * s.n_groups * s.d_state
+        p = d * (2 * d_in + 2 * s.n_groups * s.d_state + nheads)  # in_proj
+        p += s.d_conv * conv_dim
+        p += nheads * 2                         # A, D
+        p += d_in * d                           # out_proj
+        return p
+
+    kinds = cfg.layer_kinds()
+    for k in kinds:
+        if k in ("attn", "local"):
+            total += attn_params()
+            active += attn_params()
+        elif k == "ssm":
+            total += ssm_params()
+            active += ssm_params()
+    # MLP / MoE per layer (attention archs only; ssm archs have no separate mlp)
+    for i, k in enumerate(kinds):
+        if k == "ssm":
+            continue
+        if cfg.moe is not None and i >= cfg.moe.first_dense_layers:
+            m = cfg.moe
+            routed = m.n_routed * 3 * d * m.d_ff_expert
+            shared = m.n_shared * 3 * d * m.d_ff_expert
+            router = d * m.n_routed
+            total += routed + shared + router
+            active += (m.top_k + m.n_shared) * 3 * d * m.d_ff_expert + router
+        elif cfg.moe is not None:
+            total += mlp_params(cfg.moe.d_ff_dense)
+            active += mlp_params(cfg.moe.d_ff_dense)
+        else:
+            total += mlp_params(cfg.d_ff)
+            active += mlp_params(cfg.d_ff)
+    # zamba2 shared attention+mlp block (one set of weights)
+    if cfg.hybrid is not None:
+        shared = attn_params() + mlp_params(cfg.d_ff)
+        total += shared
+        n_sites = cfg.n_layers // cfg.hybrid.shared_attn_every
+        active += shared * max(1, n_sites)  # executed at every call-site
+    # final norm ~ negligible
+    return total, active

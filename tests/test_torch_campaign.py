@@ -183,7 +183,12 @@ def _port_modules():
 
 def test_importing_every_port_module_loads_neither_jax_nor_repro():
     mods = _port_modules()
-    assert "repro_torch.data.staging" in mods
+    for m in ("repro_torch.data.staging", "repro_torch.models.model",
+              "repro_torch.serve.engine", "repro_torch.launch.serve",
+              "repro_torch.configs.falcon_mamba_7b",
+              "repro_torch.kernels.flash_attention.ops",
+              "repro_torch.kernels.mamba_scan.ops"):
+        assert m in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
