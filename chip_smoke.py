@@ -37,10 +37,14 @@ it fails, and each of which prints its wall time:
    wall time, the per-tick split and the device's busy share.
 7. Flash attention: the kernel against its plain PyTorch version on the
    card (2.5e-2 in bf16, 2e-5 in f32, ``tests/test_kernels.py``'s
-   tolerances) at smollm-135m's serve shape, a ragged T, a window, f32, and
+   tolerances) at smollm-135m's serve shape, a ragged T, a window at
+   hd 128, hd 32, qwen3-14b's serve shape, f32 (the CUDA-core kernel), and
    one train_4k sequence at qwen3-14b's heads, and over strided KV-cache
-   views; with the kernel's, the plain version's and
-   ``scaled_dot_product_attention``'s times beside the kernel's bound.
+   views; each bf16 case on the tensor-core kernel, with the block it
+   launched.  The kernel's time and ``scaled_dot_product_attention``'s are
+   both the profiler's device time per call (every kernel the call
+   launches), CUDA events over back-to-back calls beside them; with the
+   plain version's time and the kernel's bound.
 8. Selective scan: the kernel against its plain PyTorch version on the card
    (rtol/atol 1e-4) at falcon-mamba-7b's serve shape, a ragged shape and
    the split in halves; times beside the bound.
@@ -49,7 +53,8 @@ it fails, and each of which prints its wall time:
    on the card, 8 requests through ``launch.serve`` and ``Engine`` (4
    slots, prompts of 4 to 255 tokens, 16 new tokens); every request must
    return 16 tokens, and flash attention must launch once per layer per
-   prefill wave (smollm) and the scan likewise (falcon-mamba).  At full
+   prefill wave (smollm), all on the tensor-core kernel, and the scan
+   likewise (falcon-mamba).  At full
    width and depth, prefill plus decode must match the forward at
    tests/test_models.py's tolerances with f32 weights (in bf16 the same
    errors are printed, beside the drift between two forwards of another
@@ -196,6 +201,61 @@ def profiled(torch, fn, iters: int, kernel_name: str = "fold_words_kernel",
     return out
 
 
+def device_ms_per_call(torch, fn, iters: int, tries: int = 3):
+    """Device time of one call of ``fn`` under ``torch.profiler``: for each
+    kernel, memset or copy it recorded, the mean over the launches it
+    recorded (it may drop a few), summed over their names, since every call
+    launches each of them once; with the launches recorded by name.  A
+    window in which it recorded nothing is profiled again, up to ``tries``
+    times; then the time is None."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    by = {}
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                us, n = by.get(e.name, (0.0, 0))
+                by[e.name] = (us + e.self_device_time_total, n + 1)
+        if by:
+            break
+    ms = sum(us / n for us, n in by.values()) / 1e3 if by else None
+    return ms, {name: n for name, (_, n) in by.items()}
+
+
+def kernel_label(line: str) -> str:
+    """``name<template args>`` of the kernel in a ptxas "Compiling entry
+    function '<mangled>'" line (the Itanium mangling's length-prefixed
+    name ending in ``kernel``), else the line."""
+    mangled = line.split("'")[1] if "'" in line else line
+    # a length prefix ends where its name begins, but may start inside a
+    # longer run of digits (a hash before it)
+    for j in range(1, len(mangled)):
+        if not (mangled[j - 1].isdigit() and not mangled[j].isdigit()):
+            continue
+        i = j - 1
+        while i >= 0 and mangled[i].isdigit():
+            name = mangled[j:j + int(mangled[i:j])]
+            if name.endswith("kernel"):
+                rest = mangled[j + len(name):]
+                args = []
+                if rest.startswith("I"):
+                    k = 1
+                    while rest.startswith("Li", k):
+                        end = rest.index("E", k)
+                        args.append(rest[k + 2:end])
+                        k = end + 1
+                return name + (f"<{', '.join(args)}>" if args else "")
+            i -= 1
+    return line.strip()
+
+
 def roofline(n_bytes: float, n_ops: float, ops_per_s: float):
     """Least time (ms) the card could take, and what sets it: the larger of
     the bytes over the memory rate and the operations over their rate."""
@@ -250,7 +310,9 @@ def phase_device_and_build(torch, kernels) -> str:
         kernel.LIBRARY.load()
         log(f"[1] kernel library {lib.relative_to(ROOT)} ready")
         for line in kernel.LIBRARY.build_log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "Compiling entry function" in line:
+                log(f"    ptxas: {kernel_label(line)}")
+            elif "registers" in line or "spill" in line:
                 log(f"    ptxas: {line.strip()}")
     log(f"[1] {len(kernels)} kernel libraries built in "
         f"{time.perf_counter() - t0:.3f} s")
@@ -741,12 +803,18 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_SFU_PER_S = 132 * 16 * 1.98e9
 ATTN_TOL = {"bfloat16": 2.5e-2, "float32": 2e-5}   # tests/test_kernels.py
 # (label, B, T, H, Hkv, hd, window, dtype); "main" is smollm-135m's serve
-# shape, "train_4k" one sequence of train_4k at qwen3-14b's heads
+# shape, "qwen3_14b_serve" qwen3-14b's, "train_4k" one sequence of
+# train_4k at qwen3-14b's heads
 FLASH_CASES = [("main", 4, 256, 9, 3, 64, None, "bfloat16"),
                ("ragged_T200", 2, 200, 9, 3, 64, None, "bfloat16"),
                ("window128_hd128", 1, 384, 2, 2, 128, 128, "bfloat16"),
+               ("hd32", 2, 256, 8, 2, 32, None, "bfloat16"),
+               ("qwen3_14b_serve", 4, 256, 40, 8, 128, None, "bfloat16"),
                ("f32_window64", 2, 256, 8, 8, 32, 64, "float32"),
                ("train_4k", 1, 4096, 40, 8, 128, None, "bfloat16")]
+# the kernel each input type launches
+FLASH_KERNELS = {"bfloat16": ("tensor_core", "flash_fwd_wgmma_kernel"),
+                 "float32": ("cuda_core", "flash_fwd_kernel")}
 
 
 def attention_pairs(T: int, window) -> int:
@@ -765,7 +833,9 @@ def flash_bound(B, T, H, Hkv, hd, window, elt: int, flops_per_s: float):
 
 def phase_flash(torch, kernel, ref, card: str) -> dict:
     """B3: kernel == plain PyTorch version on the card, at the main path's
-    shapes; with the kernel's, the plain version's and SDPA's times."""
+    shapes; with the kernel's, the plain version's and SDPA's times, the
+    kernel's and SDPA's by the same measure (the profiler's device time per
+    call)."""
     import torch.nn.functional as F
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -773,10 +843,14 @@ def phase_flash(torch, kernel, ref, card: str) -> dict:
     timings = {}
     for label, B, T, H, Hkv, hd, window, dname in FLASH_CASES:
         dtype = getattr(torch, dname)
+        path, kernel_name = FLASH_KERNELS[dname]
         q = torch.randn(B, T, H, hd, generator=gen, device=dev).to(dtype)
         k, v = (torch.randn(B, T, Hkv, hd, generator=gen, device=dev)
                 .to(dtype) for _ in range(2))
+        before = dict(kernel.launches_by_path)
         got = kernel.flash_attention_cuda(q, k, v, window)
+        check(kernel.launches_by_path[path] == before[path] + 1,
+              f"flash {label}: {dname} did not launch the {path} kernel")
         plain = ref.attention_torch(q, k, v, window)
         torch.cuda.synchronize()
         err = (got.float() - plain.float()).abs().max().item()
@@ -792,25 +866,58 @@ def phase_flash(torch, kernel, ref, card: str) -> dict:
             kc[:, :T], vc[:, :T] = k, v
             view = kernel.flash_attention_cuda(q, kc[:, :T], vc[:, :T])
             check(torch.equal(view, got), "flash over cache views differs")
-        it = 3 if label == "train_4k" else 20
+        it = 20 if label == "train_4k" else 50
         b_ms, b_by = flash_bound(B, T, H, Hkv, hd, window, q.element_size(),
                                  PEAK_BF16_FLOPS if dname == "bfloat16"
                                  else PEAK_FP32_FLOPS)
         kfn = lambda: kernel.flash_attention_cuda(q, k, v, window)  # noqa
-        prof = profiled(torch, kfn, it, kernel_name="flash_fwd_kernel")
-        k_ms, source = kernel_time(prof, cuda_ms(torch, kfn, it))
-        lib_ms = None
+        k_ms, names = device_ms_per_call(torch, kfn, it)
+        check(all(kernel_name in n for n in names),
+              f"flash {label}: launched {sorted(names)}, not only "
+              f"{kernel_name}")
+        events_ms = cuda_ms(torch, kfn, it)
+        source = "torch.profiler" if k_ms is not None else "cuda_events"
+        blocks = {}
+        if dname == "bfloat16":
+            # every block shape the library has at this hd, held to the
+            # plain version and timed; the launch picks one of them
+            for shape in kernel.blocks_for(hd):
+                forced = kernel.flash_attention_cuda(q, k, v, window, shape)
+                torch.cuda.synchronize()
+                f_err = (forced.float() - plain.float()).abs().max().item()
+                max_err = max(max_err, f_err)
+                check(torch.allclose(forced.float(), plain.float(), atol=tol,
+                                     rtol=tol),
+                      f"flash {label} block {shape}: differs from the plain "
+                      f"version (max err {f_err}, tol {tol})")
+                f_ms, _ = device_ms_per_call(
+                    torch, lambda: kernel.flash_attention_cuda(  # noqa
+                        q, k, v, window, shape), it)
+                blocks["x".join(map(str, shape))] = dict(
+                    kernel.block_shape(hd, T, window, shape), ms=f_ms,
+                    max_abs_err=f_err)
+        lib_ms = lib_events_ms = lib_names = None
         if window is None:
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True), it)
+            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+            lib_ms, lib_names = device_ms_per_call(torch, sdpa, it)
+            lib_events_ms = cuda_ms(torch, sdpa, it)
         timings[label] = {
             "shape": [B, T, H, Hkv, hd], "window": window, "dtype": dname,
-            "max_abs_err": err, "ms": k_ms, "ms_source": source,
+            "kernel": path, "max_abs_err": err,
+            "ms": k_ms if k_ms is not None else events_ms,
+            "ms_source": source, "profiled_launches": sum(names.values()),
+            "launched": it, "events_ms_per_call": events_ms,
             "plain_ms": cuda_ms(torch, lambda: ref.attention_torch(
-                q, k, v, window), max(2, it // 4)),
+                q, k, v, window), max(2, it // 10)),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-            "roofline_share": b_ms / k_ms}
+            "library_events_ms_per_call": lib_events_ms,
+            "library_kernels": lib_names,
+            "block": (kernel.block_shape(hd, T, window)
+                      if dname == "bfloat16" else None),
+            "blocks": blocks}
+        timings[label]["roofline_share"] = b_ms / timings[label]["ms"]
         log(f"[7] flash {label}: " + json.dumps(timings[label]))
     main = timings["main"]
     return {"name": "flash_attention", "route": "cuda",
@@ -823,7 +930,7 @@ def phase_flash(torch, kernel, ref, card: str) -> dict:
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
             "library": "F.scaled_dot_product_attention(is_causal=True, "
-                       "enable_gqa=True)",
+                       "enable_gqa=True), profiler device time per call",
             "shape": "smollm-135m serve [B=4, T=256, H=9, Hkv=3, hd=64] bf16",
             "at_train_4k": timings["train_4k"], "cases": timings,
             "card": card}
@@ -919,7 +1026,7 @@ def phase_scan(torch, kernel, ref, card: str) -> dict:
 
 # ------------------------------------------------------------ serving (3rd)
 # (arch, layers, the kernel its prefill launches, that kernel's name)
-SERVE_ARCHS = (("smollm-135m", 30, "flash", "flash_fwd_kernel"),
+SERVE_ARCHS = (("smollm-135m", 30, "flash", "flash_fwd_wgmma_kernel"),
                ("falcon-mamba-7b", 64, "scan", "selective_scan_kernel"))
 SERVE = dict(requests=8, max_new=16, max_batch=4, max_seq=1024)
 PREFILL_TOL = dict(atol=0.12, rtol=0.05)   # tests/test_models.py, bf16
@@ -989,11 +1096,13 @@ def phase_serve(torch, get_config, LM, launch_serve, Engine, flash, scan,
                      max_seq=SERVE["max_seq"])
         for k in (flash, scan, *others):
             k.launches = 0                                   # path starts
+        flash.launches_by_path.update(tensor_core=0, cuda_core=0)
         eng, done, wall = launch_serve.serve(cfg, SERVE["requests"],
                                              SERVE["max_new"], engine=eng,
                                              seed=SEED)
         torch.cuda.synchronize()
         launches = {"flash": flash.launches, "scan": scan.launches}
+        by_path = dict(flash.launches_by_path)
         stray = sum(k.launches for k in others)              # path ends
         check(len(done) == SERVE["requests"] and all(
             r.done and len(r.out_tokens) == SERVE["max_new"] for r in done),
@@ -1003,6 +1112,9 @@ def phase_serve(torch, get_config, LM, launch_serve, Engine, flash, scan,
         check(launches == want and stray == 0,
               f"{arch}: launches {launches} (others {stray}), want {want} "
               f"for {eng.waves} prefill waves x {n_layers} layers")
+        # bf16 prefills run on the tensor cores, never the f32 kernel
+        check(by_path == {"tensor_core": want["flash"], "cuda_core": 0},
+              f"{arch}: flash launches by kernel {by_path}")
         tokens = sum(len(r.out_tokens) for r in done)
         pre_s, dec_s = eng.stats["prefill_s"], eng.stats["decode_s"]
         waves = eng.waves
@@ -1052,6 +1164,7 @@ def phase_serve(torch, get_config, LM, launch_serve, Engine, flash, scan,
         out[arch] = {
             "layers": n_layers, "init_s": init_s, "requests": len(done),
             "tokens": tokens, "waves": waves, "launches": launches,
+            "flash_launches_by_path": by_path,
             "wall_s": wall, "tokens_per_s": tokens / wall,
             "prefill_ms_per_wave": [x * 1e3 for x in pre_s],
             "decode_ms_per_step": sum(dec_s) * 1e3 / len(dec_s),
@@ -1130,6 +1243,8 @@ def main() -> None:
     served = timed(9, phase_serve, torch, get_config, LM, launch_serve,
                    Engine, flash, scan, (kernel, lane_kernel))
     flash_entry["launches"] = served["smollm-135m"]["launches"]["flash"]
+    flash_entry["launches_by_path"] = served["smollm-135m"][
+        "flash_launches_by_path"]
     scan_entry["launches"] = served["falcon-mamba-7b"]["launches"]["scan"]
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "repro"))

@@ -5,10 +5,14 @@ port's plain PyTorch version (what the op runs for CPU tensors) is held to
 the JAX package's ``flash_attention`` through its Pallas kernel in interpret
 mode and through its jnp oracle, at ``tests/test_kernels.py``'s tolerances
 (2e-5 for f32; 2.5e-2 for bf16, where the two frameworks round the f32
-result to bf16 from sums taken in another order).  The CUDA kernel is held
-to the plain version on the card by ``chip_smoke.py``; here only the
-wrapper's checks and the build, which need no card, are tested.
+result to bf16 from sums taken in another order).  The CUDA kernels are
+held to the plain version on the card by ``chip_smoke.py``; here the
+wrapper's checks and the build, which need no card, are tested, and the bf16
+kernel's numerics are: a plain emulation of its tile algorithm (an online
+softmax over key tiles, P rounded to bf16 before P V) is held to the JAX
+package's reference with half the bf16 tolerance to spare.
 """
+import math
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -52,6 +56,68 @@ def _inputs(c, seed=0):
 
 def _port(arrays, dtype):
     return [torch.from_numpy(a).to(TORCH_DTYPES[dtype]) for a in arrays]
+
+
+def _tile_emulation(q, k, v, window, tile):
+    """What the bf16 tensor-core kernel computes, in plain PyTorch: S = Q K^T
+    in f32 (bf16 products are exact there), an online softmax over tiles of
+    ``tile`` keys with exp2 and scale * log2(e) folded in, the denominator
+    from the f32 P, P rounded to bf16 before P V, and the final divide by
+    max(l, 1e-30); the output in bf16."""
+    B, T, H, hd = q.shape
+    g = H // k.shape[2]
+    qf = q.float().transpose(1, 2)                             # B, H, T, hd
+    kf, vf = (x.float().transpose(1, 2).repeat_interleave(g, dim=1)
+              for x in (k, v))
+    c = hd ** -0.5 * math.log2(math.e)
+    m = torch.full((B, H, T), -math.inf)
+    l = torch.zeros(B, H, T)
+    acc = torch.zeros(B, H, T, hd)
+    qpos = torch.arange(T)[:, None]
+    for k0 in range(0, T, tile):
+        s = qf @ kf[:, :, k0:k0 + tile].transpose(-1, -2)
+        kpos = torch.arange(k0, min(k0 + tile, T))[None, :]
+        keep = kpos <= qpos
+        if window is not None:
+            keep &= qpos - kpos < window
+        s = s.masked_fill(~keep, -math.inf)
+        m_new = torch.maximum(m, s.amax(-1))
+        off = torch.where(m_new == -math.inf, 0.0, m_new * c)
+        alpha = torch.exp2(m * c - off)
+        p = torch.exp2(s * c - off[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = (acc * alpha[..., None]
+               + p.bfloat16().float() @ vf[:, :, k0:k0 + tile])
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.transpose(1, 2).to(torch.bfloat16)
+
+
+# the bf16 cases, and a longer GQA sequence at hd 128 (the kernel's
+# two-warpgroup, 128-key block)
+EMULATED = dict({c: v for c, v in CASES.items() if v["dtype"] == jnp.bfloat16},
+                bf16_T1024_hd128_gqa=dict(B=1, T=1024, H=4, Hkv=2, hd=128,
+                                          window=None, dtype=jnp.bfloat16))
+
+
+@pytest.mark.parametrize("tile", [64, 128])
+@pytest.mark.parametrize("case", list(EMULATED))
+def test_tile_algorithm_matches_reference_with_headroom(case, tile):
+    """The bf16 kernel's algorithm, emulated at both of its key tiles, stays
+    within half of 2.5e-2 of the JAX package's jnp oracle, so that the
+    card's check at the full tolerance has room for the order of its
+    sums."""
+    c = EMULATED[case]
+    arrays = _inputs(c, seed=5)
+    want = np.asarray(jflash(*(jnp.asarray(a, c["dtype"]) for a in arrays),
+                             window=c["window"], use_pallas=False),
+                      np.float32)
+    got = _tile_emulation(*_port(arrays, c["dtype"]), c["window"], tile)
+    assert got.shape == (c["B"], c["T"], c["H"], c["hd"])
+    err = np.abs(got.float().numpy() - want)
+    tol = 2.5e-2
+    np.testing.assert_allclose(got.float().numpy(), want, atol=tol, rtol=tol)
+    assert (err / (tol + tol * np.abs(want))).max() <= 0.5
 
 
 @pytest.mark.parametrize("use_pallas", [True, False],
@@ -106,9 +172,9 @@ def test_window_hides_keys_outside_it():
 def test_cpu_op_takes_the_plain_version():
     c = CASES["f32_gqa"]
     q, k, v = _port(_inputs(c, seed=3), c["dtype"])
-    before = kernel.launches
+    before = kernel.launches, dict(kernel.launches_by_path)
     got = flash_attention(q, k, v)
-    assert kernel.launches == before
+    assert (kernel.launches, kernel.launches_by_path) == before
     assert torch.equal(got, attention_torch(q, k, v))
 
 
@@ -139,7 +205,8 @@ def _t(*shape, dtype=torch.float32):
     ("mixed_dtypes", TypeError), ("head_dim_48", ValueError),
     ("heads_not_multiple", ValueError), ("kv_shape", ValueError),
     ("requires_grad", ValueError), ("window_0", ValueError),
-    ("strided_head_dim", ValueError)])
+    ("strided_head_dim", ValueError), ("bf16_unaligned_start", ValueError),
+    ("bf16_time_stride_not_8", ValueError)])
 def test_wrapper_rejects_what_the_kernel_does_not_take(case, error):
     q, k, v, window = _t(1, 8, 4, 32), _t(1, 8, 2, 32), _t(1, 8, 2, 32), None
     if case == "float64":
@@ -158,12 +225,57 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(case, error):
         window = 0
     elif case == "strided_head_dim":
         q = _t(1, 8, 4, 64)[..., ::2]
-    before = kernel.launches
+    elif case == "bf16_unaligned_start":
+        q, k, v = (x.bfloat16() for x in (q, k, v))
+        q = _t(1, 8, 4, 33, dtype=torch.bfloat16)[..., 1:]
+    elif case == "bf16_time_stride_not_8":
+        q, k, v = (x.bfloat16() for x in (q, k, v))
+        k = _t(1, 8, 2, 36, dtype=torch.bfloat16)[..., :32]
+    before = kernel.launches, dict(kernel.launches_by_path)
     with pytest.raises(error) as exc:
         kernel.flash_attention_cuda(q, k, v, window)
     if case == "cpu_tensors":
         assert "CUDA" in str(exc.value)
-    assert kernel.launches == before
+    if case.startswith("bf16_"):
+        assert "16-byte" in str(exc.value)
+    assert (kernel.launches, kernel.launches_by_path) == before
+
+
+@pytest.mark.parametrize("view", ["contiguous", "cache_slice", "f32_odd"])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_wrapper_passes_what_the_kernels_take(hd, view):
+    """bf16 at every head dim, contiguous or a slice of a longer KV cache,
+    and f32 at any stride, pass every check but the device: on the CPU
+    the wrapper then raises for the device alone and launches nothing."""
+    B, T, H, Hkv = 2, 24, 4, 2
+    dtype = torch.float32 if view == "f32_odd" else torch.bfloat16
+    q = _t(B, T, H, hd, dtype=dtype)
+    k, v = _t(B, T, Hkv, hd, dtype=dtype), _t(B, T, Hkv, hd, dtype=dtype)
+    if view == "cache_slice":
+        k, v = (_t(B, 4 * T, Hkv, hd, dtype=dtype)[:, :T] for _ in range(2))
+    elif view == "f32_odd":
+        q = _t(B, T, H, hd + 1, dtype=dtype)[..., 1:]
+    before = kernel.launches, dict(kernel.launches_by_path)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        kernel.flash_attention_cuda(q, k, v, window=8)
+    assert (kernel.launches, kernel.launches_by_path) == before
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_wrapper_takes_only_the_blocks_the_library_has(hd):
+    """A forced block shape must be one the library compiled at this head
+    dim, and only for bf16; every such shape passes to the device check."""
+    q = _t(1, 8, 4, hd, dtype=torch.bfloat16)
+    k = v = _t(1, 8, 2, hd, dtype=torch.bfloat16)
+    assert set(kernel.blocks_for(hd)) < set(kernel.BLOCKS)
+    for block in kernel.BLOCKS:
+        match = ("needs CUDA tensors" if block in kernel.blocks_for(hd)
+                 else "is not one of")
+        with pytest.raises(ValueError, match=match):
+            kernel.flash_attention_cuda(q, k, v, block=block)
+    with pytest.raises(ValueError, match="is not one of"):
+        kernel.flash_attention_cuda(q.float(), k.float(), v.float(),
+                                    block=(1, 64))
 
 
 def test_build_command_targets_sm90a_from_the_repo_source():
@@ -175,9 +287,13 @@ def test_build_command_targets_sm90a_from_the_repo_source():
 
 
 def test_no_library_attention_on_the_kernel_path():
-    files = [REPO / "src/repro_torch/kernels/flash_attention" / f
-             for f in ("flash_attention.py", "ops.py",
-                       "csrc/flash_attention.cu")]
+    """No source of the kernel's package, Python or CUDA, calls a library's
+    attention, a BLAS or the compiler of the plain version."""
+    package = REPO / "src/repro_torch/kernels/flash_attention"
+    files = sorted(f for f in package.rglob("*")
+                   if f.suffix in (".py", ".cu", ".cuh", ".h", ".cpp")
+                   and "build" not in f.relative_to(package).parts)
+    assert package / "csrc/flash_attention.cu" in files
     for f in files:
         text = f.read_text()
         for banned in ("scaled_dot_product_attention", "cublas", "cudnn",
