@@ -46,8 +46,12 @@ it fails, and each of which prints its wall time:
    launches), CUDA events over back-to-back calls beside them; with the
    plain version's time and the kernel's bound.
 8. Selective scan: the kernel against its plain PyTorch version on the card
-   (rtol/atol 1e-4) at falcon-mamba-7b's serve shape, a ragged shape and
-   the split in halves; times beside the bound.
+   (rtol/atol 1e-4) at falcon-mamba-7b's serve shape, a ragged shape, one
+   4096-token prompt and the serve shape at the model's own range of A and
+   dt, at every layout (threads a channel), over the split in halves and
+   on unaligned views; each case and layout timed as the profiler's device
+   time per call beside the bound, with the layout ``layout_for`` picks
+   and ptxas's registers and spills.
 9. Serving, the third main path: smollm-135m and falcon-mamba-7b at their
    published configs with all layers, weights from the port's seeded init
    on the card, 8 requests through ``launch.serve`` and ``Engine`` (4
@@ -937,18 +941,32 @@ def phase_flash(torch, kernel, ref, card: str) -> dict:
 
 
 # ------------------------------------------------------ selective scan (B4)
-# (label, B, T, D, N); "main" is falcon-mamba-7b's serve shape
-SCAN_CASES = [("main", 4, 256, 8192, 16), ("ragged", 1, 100, 300, 8)]
+# (label, B, T, D, N, inputs); "main" is falcon-mamba-7b's serve shape,
+# "long" one 4096-token prompt (a train_4k sequence) at its width, and
+# "model_range" the serve shape with the model's own A and dt (scan_inputs)
+SCAN_CASES = [("main", 4, 256, 8192, 16, "test"),
+              ("ragged", 1, 100, 300, 8, "test"),
+              ("long", 1, 4096, 8192, 16, "test"),
+              ("model_range", 4, 256, 8192, 16, "model")]
+SCAN_TOL = dict(rtol=1e-4, atol=1e-4)     # tests/test_kernels.py
 
 
-def scan_inputs(torch, gen, B, T, D, N, zero_h0=False):
-    """Drawn as tests/test_kernels.py draws them, on the card."""
+def scan_inputs(torch, gen, B, T, D, N, zero_h0=False, model=False):
+    """Drawn as tests/test_kernels.py draws them, on the card; with
+    ``model``, A and dt as falcon-mamba's Mamba1 layer makes them
+    (``models/ssm.py``: A = -(1..N) for every channel, dt = softplus of a
+    projection with a zero bias, here of a standard normal), where |dt * A|
+    reaches tens."""
     dev = gen.device
     u = torch.randn(B, T, D, generator=gen, device=dev)
-    dt = 0.01 + 0.19 * torch.rand(B, T, D, generator=gen, device=dev)
+    dt = (torch.nn.functional.softplus(
+        torch.randn(B, T, D, generator=gen, device=dev)) if model else
+        0.01 + 0.19 * torch.rand(B, T, D, generator=gen, device=dev))
     Bm, Cm = (torch.randn(B, T, N, generator=gen, device=dev)
               for _ in range(2))
-    A = -(0.5 + 1.5 * torch.rand(D, N, generator=gen, device=dev))
+    A = (-torch.arange(1, N + 1, dtype=torch.float32,
+                       device=dev)[None].repeat(D, 1) if model else
+         -(0.5 + 1.5 * torch.rand(D, N, generator=gen, device=dev)))
     h0 = (torch.zeros(B, D, N, device=dev) if zero_h0 else
           torch.randn(B, D, N, generator=gen, device=dev))
     return u, dt, Bm, Cm, A, h0
@@ -961,56 +979,135 @@ def scan_bound(B, T, D, N):
     return roofline(n_bytes, B * T * D * N, PEAK_SFU_PER_S)
 
 
+def ptxas_kernels(build_log: str) -> dict:
+    """Registers and spill bytes of each kernel in a ``-Xptxas -v`` log, by
+    ``kernel_label``."""
+    out, name = {}, None
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            name = kernel_label(line)
+            out[name] = {}
+        elif name and "spill stores" in line:
+            words = line.replace(",", "").split()
+            out[name]["spill_stores"] = int(words[words.index("spill") - 2])
+            out[name]["spill_loads"] = int(words[-4])
+        elif name and "Used" in line and "registers" in line:
+            words = line.replace(",", "").split()
+            out[name]["registers"] = int(words[words.index("registers") - 1])
+    return out
+
+
 def phase_scan(torch, kernel, ref, card: str) -> dict:
-    """B4: kernel == plain PyTorch version on the card at rtol/atol 1e-4,
-    with the split-in-halves continuity; times beside the bound."""
+    """B4: kernel == plain PyTorch version on the card at rtol/atol 1e-4, at
+    every case, at every layout, over the split in halves and on unaligned
+    views; each case and layout timed as the profiler's device time per
+    call, beside the bound, with ptxas's registers and spills."""
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    lib = kernel.LIBRARY.load()
+    ptx = ptxas_kernels(kernel.LIBRARY.build_log)
+    if ptx:   # a library built by an earlier run leaves no log
+        for layout in kernel.LAYOUTS:
+            got = ptx.get(f"selective_scan_kernel<16, {layout}>", {})
+            check(got.get("spill_stores") == 0 == got.get("spill_loads"),
+                  f"scan layout {layout} at N=16 spills: {got}")
     max_err = 0.0
 
     def close(got, want, what):
         nonlocal max_err
         err = (got - want).abs().max().item()
         max_err = max(max_err, err)
-        check(torch.allclose(got, want, rtol=1e-4, atol=1e-4),
+        share = ((got - want).abs() / (SCAN_TOL["atol"] + SCAN_TOL["rtol"]
+                                       * want.abs())).max().item()
+        check(torch.allclose(got, want, **SCAN_TOL),
               f"scan {what}: kernel differs from the plain version "
               f"(max err {err})")
+        return {"max_abs_err": err, "tol_share": share}
+
+    def worst(a, b):
+        return {k: max(a[k], b[k]) for k in a}
 
     timings = {}
-    for label, B, T, D, N in SCAN_CASES:
-        ins = scan_inputs(torch, gen, B, T, D, N)
-        y, hT = kernel.selective_scan_cuda(*ins)
+    for label, B, T, D, N, kind in SCAN_CASES:
+        ins = scan_inputs(torch, gen, B, T, D, N, model=kind == "model")
         y2, h2 = ref.selective_scan_torch(*ins)
-        close(y, y2, f"{label} y")
-        close(hT, h2, f"{label} hT")
-        it = 20
+        picked = kernel.layout_for(B, D, N)
+        check(lib.repro_selective_scan_layout_for(B, D, N) == picked,
+              f"scan {label}: the library picks layout "
+              f"{lib.repro_selective_scan_layout_for(B, D, N)}, "
+              f"layout_for {picked}")
+        before = kernel.launches
+        y, hT = kernel.selective_scan_cuda(*ins)
+        check(kernel.launches == before + 1, f"scan {label}: not one launch")
+        errs = worst(close(y, y2, f"{label} y"), close(hT, h2, f"{label} hT"))
         b_ms, b_by = scan_bound(B, T, D, N)
-        kfn = lambda: kernel.selective_scan_cuda(*ins)  # noqa: E731
-        prof = profiled(torch, kfn, it, kernel_name="selective_scan_kernel")
-        k_ms, source = kernel_time(prof, cuda_ms(torch, kfn, it))
+        it = 10 if T >= 4096 else 20
+        layouts = {}
+        for layout in kernel.LAYOUTS:
+            yl, hl = kernel.selective_scan_cuda(*ins, layout=layout)
+            l_errs = worst(close(yl, y2, f"{label} layout {layout} y"),
+                           close(hl, h2, f"{label} layout {layout} hT"))
+            errs = worst(errs, l_errs)
+            ms, names = device_ms_per_call(
+                torch, lambda: kernel.selective_scan_cuda(  # noqa: B023
+                    *ins, layout=layout), it)
+            name = f"selective_scan_kernel<{N}, {layout}>"
+            check(bool(names) and all(name in n for n in names),
+                  f"scan {label} layout {layout}: launched {sorted(names)}, "
+                  f"not only {name}")
+            layouts[str(layout)] = dict(
+                l_errs, ms=ms, roofline_share=b_ms / ms if ms else None,
+                **ptx.get(name, {}))
+        events_ms = cuda_ms(torch, lambda: kernel.selective_scan_cuda(  # noqa
+            *ins), it)
+        k_ms = layouts[str(picked)]["ms"]
         timings[label] = {
-            "shape": [B, T, D, N], "ms": k_ms, "ms_source": source,
-            "plain_ms": cuda_ms(torch, lambda: ref.selective_scan_torch(*ins),
-                                2),
+            "shape": [B, T, D, N], "inputs": kind, "layout": picked,
+            **errs, "ms": k_ms if k_ms is not None else events_ms,
+            "ms_source": ("torch.profiler" if k_ms is not None
+                          else "cuda_events"),
+            "events_ms_per_call": events_ms,
+            "plain_ms": cuda_ms(torch, lambda: ref.selective_scan_torch(
+                *ins), 1, warmup=1),
             "bound_ms": b_ms, "bound_by": b_by,
             "bytes_ms": 4 * (3 * B * T * D + 2 * B * T * N + D * N
                              + 2 * B * D * N) / PEAK_BYTES_PER_S * 1e3,
             "exp_ms": B * T * D * N / PEAK_SFU_PER_S * 1e3,
-            "roofline_share": b_ms / k_ms}
+            "layouts": layouts}
+        timings[label]["roofline_share"] = b_ms / timings[label]["ms"]
         log(f"[8] scan {label}: " + json.dumps(timings[label]))
-    # scanning [0:T] equals [0:T/2] then [T/2:T] with the state carried
+        del ins, y, hT, y2, h2
+    # scanning [0:T] equals [0:T/2] then [T/2:T] with the state carried, at
+    # every layout
     u, dt, Bm, Cm, A, h0 = scan_inputs(torch, gen, 4, 256, 8192, 16,
                                        zero_h0=True)
-    y_full, h_full = kernel.selective_scan_cuda(u, dt, Bm, Cm, A, h0)
-    ya, ha = kernel.selective_scan_cuda(u[:, :128], dt[:, :128],
-                                        Bm[:, :128], Cm[:, :128], A, h0)
-    yb, hb = kernel.selective_scan_cuda(u[:, 128:], dt[:, 128:],
-                                        Bm[:, 128:], Cm[:, 128:], A, ha)
-    close(torch.cat([ya, yb], 1), y_full, "halves y")
-    close(hb, h_full, "halves hT")
+    for layout in kernel.LAYOUTS:
+        y_full, h_full = kernel.selective_scan_cuda(u, dt, Bm, Cm, A, h0,
+                                                    layout)
+        ya, ha = kernel.selective_scan_cuda(u[:, :128], dt[:, :128],
+                                            Bm[:, :128], Cm[:, :128], A, h0,
+                                            layout)
+        yb, hb = kernel.selective_scan_cuda(u[:, 128:], dt[:, 128:],
+                                            Bm[:, 128:], Cm[:, 128:], A, ha,
+                                            layout)
+        close(torch.cat([ya, yb], 1), y_full, f"halves y, layout {layout}")
+        close(hb, h_full, f"halves hT, layout {layout}")
+    # inputs the 16-byte copies cannot take, which go through the kernel's
+    # 4-byte copies and loads: rows of 301 floats, Bm and Cm sliced from one
+    # projection at a 4-byte offset, A and h0 one float off a 16-byte line
+    u, dt, _, _, A, h0 = scan_inputs(torch, gen, 2, 100, 301, 8)
+    proj = torch.randn(2, 100, 17, generator=gen, device=dev)
+    Bm, Cm = proj[..., 1:9], proj[..., 9:]
+    A, h0 = (torch.empty(x.numel() + 1, device=dev)[1:].view(x.shape)
+             .copy_(x) for x in (A, h0))
+    y2, h2 = ref.selective_scan_torch(u, dt, Bm, Cm, A, h0)
+    for layout in kernel.LAYOUTS:
+        y, hT = kernel.selective_scan_cuda(u, dt, Bm, Cm, A, h0, layout)
+        close(y, y2, f"unaligned views y, layout {layout}")
+        close(hT, h2, f"unaligned views hT, layout {layout}")
     log(f"[8] scan: kernel == plain PyTorch (rtol/atol 1e-4) on "
-        f"{len(SCAN_CASES)} shapes and the split in halves "
-        f"(max_abs_err {max_err})")
+        f"{len(SCAN_CASES)} cases at layouts {kernel.LAYOUTS}, the split "
+        f"in halves and unaligned views (max_abs_err {max_err})")
     main = timings["main"]
     return {"name": "selective_scan", "route": "cuda",
             "source": "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu",
@@ -1021,7 +1118,7 @@ def phase_scan(torch, kernel, ref, card: str) -> dict:
             "bound_by": main["bound_by"], "library_ms": None,
             "library": "none: no single PyTorch call computes this scan",
             "shape": "falcon-mamba-7b serve [B=4, T=256, D=8192, N=16] f32",
-            "cases": timings, "card": card}
+            "layout": main["layout"], "cases": timings, "card": card}
 
 
 # ------------------------------------------------------------ serving (3rd)

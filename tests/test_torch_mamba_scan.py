@@ -1,14 +1,18 @@
 """The port's selective scan (B4) against the JAX package's.
 
 Inputs are made from a seed with numpy and handed to both packages, drawn as
-``tests/test_kernels.py`` draws them.  The port's plain PyTorch version (what
-the op runs for CPU tensors) is held to the JAX package's ``selective_scan``
-through its Pallas kernel in interpret mode and to its sequential
-``selective_scan_ref``, at ``tests/test_kernels.py``'s rtol/atol 1e-4.  The
+``tests/test_kernels.py`` draws them, or at falcon-mamba's own range of A and
+dt (``_model_inputs``).  The port's plain PyTorch version (what the op runs
+for CPU tensors) is held to the JAX package's ``selective_scan`` through its
+Pallas kernel in interpret mode and to its sequential ``selective_scan_ref``,
+at ``tests/test_kernels.py``'s rtol/atol 1e-4.  So is ``_kernel_order_scan``,
+a plain emulation of the CUDA kernel's arithmetic order at each layout.  The
 CUDA kernel is held to the plain version on the card by ``chip_smoke.py``;
-here only the wrapper's checks and the build, which need no card, are
-tested.
+here only the layout choice, the wrapper's checks and the build, which need
+no card, are tested.
 """
+import re
+import sys
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -23,6 +27,9 @@ from repro_torch.kernels.mamba_scan.ops import selective_scan
 from repro_torch.kernels.mamba_scan.ref import selective_scan_torch
 
 REPO = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(REPO))
+import chip_smoke  # noqa: E402  (the card's cases; imports no torch or jax)
+from repro_torch.serve.engine import _bucket  # noqa: E402
 SHAPES = [  # tests/test_kernels.py's five
     (1, 32, 64, 8), (2, 64, 128, 16), (2, 128, 256, 16),
     (1, 96, 300, 8),     # non-aligned D
@@ -40,6 +47,43 @@ def _inputs(shape, seed=42, zero_h0=False):
     A = -rng.uniform(0.5, 2.0, (D, N))
     h0 = np.zeros((B, D, N)) if zero_h0 else rng.normal(size=(B, D, N))
     return [a.astype(np.float32) for a in (u, dt, Bm, Cm, A, h0)]
+
+
+def _model_inputs(shape, seed=43):
+    """A and dt as falcon-mamba's Mamba1 layer makes them
+    (``models/ssm.py``): A = -(1..N) for every channel, dt = softplus of a
+    projection with a zero bias, here of a standard normal."""
+    B, T, D, N = shape
+    u, _, Bm, Cm, _, h0 = _inputs(shape, seed)
+    rng = np.random.default_rng(seed + 1)
+    dt = np.logaddexp(0.0, rng.normal(size=(B, T, D)))
+    A = -np.tile(np.arange(1, N + 1, dtype=np.float64), (D, 1))
+    return [u, dt.astype(np.float32), Bm, Cm, A.astype(np.float32), h0]
+
+
+def _kernel_order_scan(u, dt, Bm, Cm, A, h0, layout):
+    """The CUDA kernel's arithmetic, in plain float32 PyTorch: exp2 of
+    dt * (A * log2 e), dt * u formed once a step, and y summed state by
+    state over each of the channel's ``layout`` threads' N / layout states,
+    then across the threads by xor-shuffle pairs ((0+1) + (2+3))."""
+    B, T, D = u.shape
+    N = A.shape[1]
+    S = N // layout
+    a2 = A * torch.tensor(1.4426950408889634, dtype=torch.float32)
+    h = h0.clone()
+    ys = []
+    for t in range(T):
+        dtv = dt[:, t, :, None]
+        dtu = (dt[:, t] * u[:, t])[..., None]
+        h = torch.exp2(dtv * a2) * h + dtu * Bm[:, t, None, :]
+        prod = (h * Cm[:, t, None, :]).reshape(B, D, layout, S)
+        part = prod[..., 0]
+        for k in range(1, S):
+            part = part + prod[..., k]
+        while part.shape[-1] > 1:              # xor 1, then xor 2
+            part = part[..., 0::2] + part[..., 1::2]
+        ys.append(part[..., 0])
+    return torch.stack(ys, dim=1), h
 
 
 def _close(got, want):
@@ -141,4 +185,86 @@ def test_build_command_targets_sm90a_from_the_repo_source():
     cmd = lib.nvcc_command("nvcc", Path("out.so"))
     assert "arch=compute_90a,code=sm_90a" in cmd and str(lib.source) in cmd
     source = lib.source.read_text()
-    assert "expf(" in source and "__expf(" not in source
+    # exp(x) as one ex2.approx of x * log2(e), with log2(e) folded into A
+    assert "ex2.approx.ftz.f32" in source and "kLog2e" in source
+    assert "__expf(" not in source
+
+
+@pytest.mark.parametrize("layout", kernel.LAYOUTS)
+@pytest.mark.parametrize("case", [
+    ("long", (1, 4096, 16, 16), "test"),
+    ("long_model_range", (1, 4096, 16, 16), "model"),
+    ("serve_model_range", (2, 256, 64, 16), "model")], ids=lambda c: c[0])
+def test_kernel_arithmetic_order_matches_reference(case, layout):
+    """The reordered math (exp2 with log2 e folded into A, y summed per
+    thread then across the channel's threads), not only the plain version,
+    holds rtol/atol 1e-4 over 4096 steps and at the model's range, where
+    |dt * A| reaches tens."""
+    _, shape, kind = case
+    arrays = (_model_inputs if kind == "model" else _inputs)(shape)
+    y_want, h_want = selective_scan_ref(*(jnp.asarray(a) for a in arrays))
+    y, hT = _kernel_order_scan(*(torch.from_numpy(a) for a in arrays),
+                               layout)
+    _close(y, y_want)
+    _close(hT, h_want)
+
+
+@pytest.mark.parametrize("reference", ["pallas_interpret", "sequential_ref"])
+def test_plain_version_matches_reference_at_model_range(reference):
+    arrays = _model_inputs((2, 256, 64, 16))
+    jin = [jnp.asarray(a) for a in arrays]
+    if reference == "pallas_interpret":
+        y_want, h_want = jscan(*jin, use_pallas=True)
+    else:
+        y_want, h_want = selective_scan_ref(*jin)
+    y, hT = selective_scan(*(torch.from_numpy(a) for a in arrays))
+    _close(y, y_want)
+    _close(hT, h_want)
+
+
+# falcon-mamba-7b's prefill waves: chip_smoke.py's serving run (4 slots,
+# prompts of up to a quarter of its 1024-token cache) and launch.serve's
+# defaults (4 slots, a 256-token cache); d_inner 8192, N 16
+SERVE_SCANS = [("chip_smoke_serve", 4, _bucket(chip_smoke.SERVE["max_seq"]
+                                               // 4 - 1), 8192, 16),
+               ("launch_serve_defaults", 4, _bucket(256 // 4 - 1), 8192,
+                16)]
+WANT_LAYOUT = {"main": 1, "ragged": 4, "long": 2, "model_range": 1,
+               "chip_smoke_serve": 1, "launch_serve_defaults": 1}
+
+
+@pytest.mark.parametrize("case", [c[:5] for c in chip_smoke.SCAN_CASES]
+                         + SERVE_SCANS, ids=lambda c: c[0])
+def test_layout_for_picks_a_valid_layout(case):
+    label, B, T, D, N = case
+    layout = kernel.layout_for(B, D, N)
+    assert layout in kernel.LAYOUTS and N % layout == 0
+    assert layout == WANT_LAYOUT[label]
+    # the fewest threads a channel that reach WAVE_THREADS, else the most
+    fewer = [x for x in kernel.LAYOUTS if x < layout]
+    assert all(B * D * x < kernel.WAVE_THREADS for x in fewer)
+    assert (B * D * layout >= kernel.WAVE_THREADS
+            or layout == kernel.LAYOUTS[-1])
+
+
+def test_library_layout_rule_matches_layout_for():
+    """The C library picks its own layout in ``repro_selective_scan`` by the
+    same threshold (phase 8 also compares the two picks on the card)."""
+    source = kernel.LIBRARY.source.read_text()
+    found = re.search(r"kWaveThreads = (\d+);", source)
+    assert found and int(found.group(1)) == kernel.WAVE_THREADS
+    assert "int repro_selective_scan_layout_for(" in source
+    assert "int repro_selective_scan_layout(" in source
+
+
+@pytest.mark.parametrize("layout", [0, 3, 8, "1"])
+def test_wrapper_rejects_an_unknown_layout_before_any_build(layout,
+                                                            monkeypatch):
+    def no_build():
+        raise AssertionError("the library was built")
+    monkeypatch.setattr(kernel.LIBRARY, "build", no_build)
+    ins = [torch.from_numpy(a) for a in _inputs((1, 8, 16, 4))]
+    before = kernel.launches
+    with pytest.raises(ValueError, match="layout"):
+        kernel.selective_scan_cuda(*ins, layout=layout)
+    assert kernel.launches == before
