@@ -15,9 +15,13 @@ it fails, and each of which prints its wall time:
    with their registers and spills.
 2. Kernel against its plain PyTorch version and the numpy reference, on the
    card, bit for bit, at the main path's shapes (4 MiB chunks, 256 MiB
-   buffers), at global word offsets up to the 2**32 wrap, on an unaligned
-   pointer and under a random chunking; with the kernel's, the plain
-   version's and the host-to-device copy's times beside the kernel's bound.
+   buffers), at global word offsets up to the 2**32 wrap, on unaligned
+   pointers, at sizes that straddle the kernel's tiles and its wave, and
+   under random chunkings; every plan the library makes equal to
+   ``checksum.plan``'s; the device time per call cold at 4 MiB and 256 MiB
+   with the plan, registers and shared memory, and the kernel's, the
+   plain version's and the host-to-device copy's times beside the kernel's
+   bound, with the time on a chunk just copied to the card.
 3. Staging, the main path over real bytes: one ESGF-like dataset of 256 MiB
    files replicated by ``StagingArea`` from STORE to two pods through the
    Figure-4 scheduler and ``LocalFSTransport``, hashed on the card, with one
@@ -205,13 +209,12 @@ def profiled(torch, fn, iters: int, kernel_name: str = "fold_words_kernel",
     return out
 
 
-def device_ms_per_call(torch, fn, iters: int, tries: int = 3):
-    """Device time of one call of ``fn`` under ``torch.profiler``: for each
-    kernel, memset or copy it recorded, the mean over the launches it
-    recorded (it may drop a few), summed over their names, since every call
-    launches each of them once; with the launches recorded by name.  A
+def device_ms_by_name(torch, fn, iters: int, tries: int = 3) -> dict:
+    """Device time of one call of ``fn`` under ``torch.profiler``, by the
+    name of each kernel, memset or copy it recorded: ``{name: (mean ms over
+    the launches recorded, launches recorded)}`` (it may drop a few).  A
     window in which it recorded nothing is profiled again, up to ``tries``
-    times; then the time is None."""
+    times; then the dict is empty."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -229,8 +232,27 @@ def device_ms_per_call(torch, fn, iters: int, tries: int = 3):
                 by[e.name] = (us + e.self_device_time_total, n + 1)
         if by:
             break
-    ms = sum(us / n for us, n in by.values()) / 1e3 if by else None
+    return {name: (us / n / 1e3, n) for name, (us, n) in by.items()}
+
+
+def device_ms_per_call(torch, fn, iters: int, tries: int = 3):
+    """Device time of one call of ``fn`` under ``torch.profiler``: the
+    per-name means of ``device_ms_by_name`` summed, since every call
+    launches each of them once; with the launches recorded by name.  The
+    time is None where nothing was recorded."""
+    by = device_ms_by_name(torch, fn, iters, tries)
+    ms = sum(ms for ms, _ in by.values()) if by else None
     return ms, {name: n for name, (_, n) in by.items()}
+
+
+def kernel_ms_per_call(torch, fn, iters: int):
+    """Device time of one call of ``fn`` in kernels alone, leaving out the
+    copies and memsets it makes (a chunk copied to the card before it is
+    folded); None where the profiler recorded no kernel."""
+    by = device_ms_by_name(torch, fn, iters)
+    kernels = [ms for name, (ms, _) in by.items()
+               if not name.startswith(("Memcpy", "Memset"))]
+    return sum(kernels) if kernels else None
 
 
 def kernel_label(line: str) -> str:
@@ -323,25 +345,48 @@ def phase_device_and_build(torch, kernels) -> str:
     return card
 
 
+def checksum_plan_row(kernel, ptx: dict, words, sms: int) -> dict:
+    """The plan ``checksum.plan`` makes for a fold of ``words``, whether
+    the library's own plan equals it, and ptxas's registers, spills and
+    shared memory for the kernel it launches."""
+    n, mod = words.numel(), words.data_ptr() % 16
+    plan = kernel.plan(n, mod, sms)
+    label = f"fold_words_kernel<{plan.loads}>"
+    return {"plan": plan.__dict__,
+            "plan_equal": plan == kernel.library_plan(n, mod, sms),
+            "kernel": label, **ptx.get(label, {})}
+
+
 def phase_kernel(torch, np, kernel, ref, ops, integrity, card: str) -> dict:
-    """Kernel == plain PyTorch version (on the card) == numpy reference."""
+    """Kernel == plain PyTorch version (on the card) == numpy reference;
+    timed cold at 4 MiB and 256 MiB beside the bound, with its plan (held
+    to the Python mirror) and ptxas's registers, spills and shared
+    memory."""
     dev = torch.device(DEVICE)
     rng = np.random.default_rng(SEED)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    ptx = ptxas_kernels(kernel.LIBRARY.build_log)
     max_err = 0
     n_cases = 0
 
     def fold_all(words, start, w_np):
         nonlocal max_err, n_cases
-        acc = ops.new_accumulator(dev)
-        got = ops.accumulator_value(kernel.fold_words_cuda(words, start, acc))
         plain = int(ref.fold_words_torch(words, start))
         want = ref.fold_words_np(w_np, start)
+        if words.numel():   # no words: no plan and no launch
+            row = checksum_plan_row(kernel, ptx, words, sms)
+            check(row["plan_equal"],
+                  f"plan of {words.numel()} words at {words.data_ptr() % 16} "
+                  f"mod 16: the library's differs from checksum.plan's "
+                  f"{row['plan']}")
+        acc = ops.new_accumulator(dev)
+        got = ops.accumulator_value(kernel.fold_words_cuda(words, start, acc))
         max_err = max(max_err, abs(got - plain), abs(got - want))
         n_cases += 1
         check(got == plain == want,
               f"fold mismatch: {words.numel()} words at start {start}: "
               f"kernel {got:#010x} plain {plain:#010x} numpy {want:#010x}")
-        return got
+        return want
 
     # the byte sizes of the JAX package's kernel tests, whole checksums
     for size in [0, 1, 3, 4, 7, 100, 4096, 65536, 131072 * 4 + 5, 1_000_003,
@@ -353,8 +398,23 @@ def phase_kernel(torch, np, kernel, ref, ops, integrity, card: str) -> dict:
         check(h == ref.checksum_bytes_np(data) == ops.checksum_bytes(data, DEVICE),
               f"checksum mismatch at {size} bytes")
 
+    # sizes that straddle one block's tile (exactly one, and one plus 1, 2
+    # and 3 words), one wave of the card (where a thread's loads go from
+    # one to four) and one tile of four loads beyond it, and a call of
+    # fewer words than one block has threads; at every word offset mod 16
+    # and up to the 2**32 wrap
+    tile = 4 * kernel.THREADS
+    wave = 4 * sms * kernel.THREADS_PER_SM
+    for n in (tile, tile + 1, tile + 2, tile + 3, wave, wave + 4,
+              wave + tile * kernel.LOADS_BIG + 1, 300):
+        w_np = rng.integers(0, 2 ** 32, n + 3, dtype=np.uint32)
+        buf = torch.from_numpy(w_np.view(np.int32)).to(dev)
+        for off in range(4):
+            for start in (0, 2 ** 32 - 3):
+                fold_all(buf[off:off + n], start, w_np[off:off + n])
+
     # the main path's 4 MiB chunk and a 256 MiB buffer (beyond the 50 MB
-    # L2), at offsets up to the 2**32 wrap; an unaligned (scalar) pointer
+    # L2), at offsets up to the 2**32 wrap; unaligned views
     bufs = {}
     for label, nbytes in (("4MiB", 4 * MiB), ("256MiB", 256 * MiB)):
         data = rng.bytes(nbytes)
@@ -369,7 +429,8 @@ def phase_kernel(torch, np, kernel, ref, ops, integrity, card: str) -> dict:
     fold_all(words[1:], 12345, w_np[1:])
     fold_all(words[3:-2], 2 ** 32 - 3, w_np[3:-2])
 
-    # a random chunking of one buffer through the streaming hasher
+    # a random chunking of one buffer through the streaming hasher, and the
+    # same words cut at random straight through the wrapper
     data = rng.bytes(64 * MiB + 3)
     s = integrity.StreamingChecksum(DEVICE)
     i = 0
@@ -381,9 +442,20 @@ def phase_kernel(torch, np, kernel, ref, ops, integrity, card: str) -> dict:
         n_chunks += 1
     check(s.digest() == ref.checksum_bytes_np(data),
           "streaming digest mismatch under random chunking")
+    w_np = ref.bytes_to_words(data)
+    words = torch.from_numpy(w_np.view(np.int32)).to(dev)
+    want = ref.fold_words_np(w_np, 0)
+    cuts = np.unique(np.concatenate([[0, w_np.size], rng.integers(
+        1, w_np.size, 40)]))
+    acc = ops.new_accumulator(dev)
+    for lo, hi in zip(cuts[:-1], cuts[1:]):
+        kernel.fold_words_cuda(words[lo:hi], int(lo), acc)
+    check(ops.accumulator_value(acc) == want,
+          "random chunking of the wrapper's calls differs from numpy")
     torch.cuda.synchronize()
-    log(f"[2] kernel == plain PyTorch == numpy on {n_cases} folds and a "
-        f"{n_chunks}-chunk stream (max_abs_err {max_err})")
+    log(f"[2] kernel == plain PyTorch == numpy on {n_cases} folds, a "
+        f"{n_chunks}-chunk stream and {len(cuts) - 1} random chunks "
+        f"(max_abs_err {max_err}); every plan == checksum.plan (sms {sms})")
 
     # times: kernel over rotating 4 MiB chunks that together exceed L2 (the
     # cold chunk the main path hands it), and over the 256 MiB buffer
@@ -411,10 +483,20 @@ def phase_kernel(torch, np, kernel, ref, ops, integrity, card: str) -> dict:
         prof = profiled(torch, kfn, it)
         events_ms = cuda_ms(torch, kfn, it)
         k_ms, source = kernel_time(prof, events_ms)
+        row = checksum_plan_row(kernel, ptx, chunks[0] if n_words == MiB
+                                else big, sms)
+        check(row["plan_equal"], f"fold_words {label}: the library's plan "
+              f"differs from checksum.plan's {row['plan']}")
+        ms, names = device_ms_per_call(torch, kfn, it)
+        check(bool(names) and all("fold_words_kernel" in n for n in names),
+              f"fold_words {label}: launched {sorted(names)}")
+        row.update(ms=ms, roofline_share=b_ms / ms if ms else None)
+        log(f"    {label} plan: " + json.dumps(row))
         timings[label] = {
             "ms": k_ms, "ms_source": source,
             "profiled_launches": prof["kernel_count"], "launched": it,
             "events_ms_per_call": events_ms,
+            "device_ms_per_call": ms,
             "plain_ms": cuda_ms(torch, pfn, max(2, it // 10)),
             "bound_ms": b_ms, "bound_by": b_by,
             "h2d_ms": host_ms(torch, h2d, max(3, it // 4)),
@@ -422,6 +504,17 @@ def phase_kernel(torch, np, kernel, ref, ops, integrity, card: str) -> dict:
             "roofline_share": b_ms / k_ms}
         log(f"    {label}: " + json.dumps(timings[label]))
     main = timings["4MiB"]
+    # what the main path hands the kernel: a chunk just copied to the card,
+    # which L2 may still hold (its time only: no share of the bound)
+    main["warm_after_copy_ms"] = kernel_ms_per_call(
+        torch, lambda: kernel.fold_words_cuda(
+            ops.words_tensor(chunk_data, MiB, dev), 0, acc), 100)
+    # the wrapper's host time a call, on one chunk that stays in L2
+    main["wrapper_host_ms"] = host_ms(
+        torch, lambda: kernel.fold_words_cuda(chunks[0], 0, acc), 2000,
+        warmup=20)
+    log(f"    4MiB warm_after_copy_ms {main['warm_after_copy_ms']}, "
+        f"wrapper_host_ms {main['wrapper_host_ms']}")
     return {"name": "fold_words", "route": "cuda",
             "source": "src/repro_torch/kernels/checksum/csrc/checksum.cu",
             "replaces": "src/repro/kernels/checksum/checksum.py:36",
@@ -430,6 +523,8 @@ def phase_kernel(torch, np, kernel, ref, ops, integrity, card: str) -> dict:
             "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": None, "h2d_ms": main["h2d_ms"],
+            "warm_after_copy_ms": main["warm_after_copy_ms"],
+            "wrapper_host_ms": main["wrapper_host_ms"],
             "shape": "4 MiB chunk (1048576 words)",
             "at_256MiB": timings["256MiB"], "card": card}
 
@@ -980,8 +1075,8 @@ def scan_bound(B, T, D, N):
 
 
 def ptxas_kernels(build_log: str) -> dict:
-    """Registers and spill bytes of each kernel in a ``-Xptxas -v`` log, by
-    ``kernel_label``."""
+    """Registers, spill bytes and static shared memory of each kernel in a
+    ``-Xptxas -v`` log, by ``kernel_label``."""
     out, name = {}, None
     for line in build_log.splitlines():
         if "Compiling entry function" in line:
@@ -994,6 +1089,8 @@ def ptxas_kernels(build_log: str) -> dict:
         elif name and "Used" in line and "registers" in line:
             words = line.replace(",", "").split()
             out[name]["registers"] = int(words[words.index("registers") - 1])
+            if "smem" in words:
+                out[name]["smem_bytes"] = int(words[words.index("smem") - 2])
     return out
 
 

@@ -5,9 +5,11 @@ hash is integer arithmetic, so the tolerance is exact equality.  The port
 runs its plain PyTorch version (``device="cpu"``); the JAX package runs its
 numpy reference and its Pallas kernel in interpret mode, as
 ``tests/test_kernels.py`` does.  The CUDA kernel itself is held to the plain
-version on the card by ``chip_smoke.py``; here only the wrapper's checks and
-build command, which need no card, are tested.
+version on the card by ``chip_smoke.py``; here the wrapper's checks, its
+build command and the plan that cuts a call into pieces (``checksum.plan``,
+the mirror of the source's ``plan_for``), which need no card, are tested.
 """
+import re
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -135,3 +137,95 @@ def test_find_nvcc_raises_without_toolkit(tmp_path, monkeypatch):
     monkeypatch.setenv("PATH", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc"):
         find_nvcc()
+
+
+# the kernel's plan: every piece it folds, at every size, alignment and card
+def _plan_sizes(sms: int):
+    """Word counts from 1 to a few million: every small count, and each
+    side of one block's tile, one wave of the card (where a thread's loads
+    go from one to four) and one tile of four loads beyond it."""
+    wave = sms * (kernel.THREADS_PER_SM // kernel.THREADS) * kernel.THREADS
+    edges = [4 * kernel.THREADS, 4 * wave,
+             4 * (wave + kernel.THREADS * kernel.LOADS_BIG), 1 << 20,
+             3_000_000]
+    return sorted(set(range(1, 41)) | {e + d for e in edges
+                                       for d in range(-3, 8)})
+
+
+@pytest.mark.parametrize("sms", [1, 8, 132])
+@pytest.mark.parametrize("ptr_mod_16", [0, 4, 8, 12])
+def test_plan_covers_every_word_once(sms, ptr_mod_16):
+    """The plan's pieces (head, each block's quads, tail) tile [0, n)
+    exactly once, whatever the alignment."""
+    for n in _plan_sizes(sms):
+        p = kernel.plan(n, ptr_mod_16, sms)
+        assert p.head == min(n, (16 - ptr_mod_16) % 16 // 4)
+        assert p.tail < 4 and p.blocks >= 1
+        at = 0
+        for lo, hi in sorted(p.pieces()):
+            assert lo == at and hi > lo, (n, lo, hi, at)
+            at = hi
+        assert at == n, (n, at)
+
+
+@pytest.mark.parametrize("sms", [1, 8, 132])
+def test_one_load_a_thread_only_within_one_pass(sms):
+    """The kernel's one-load path walks quads with 32-bit indices; the plan
+    takes it only where one pass of the grid covers every quad, and takes
+    four loads a thread, in a grid of at most one wave, beyond it."""
+    wave = sms * (kernel.THREADS_PER_SM // kernel.THREADS)
+    for n in _plan_sizes(sms):
+        p = kernel.plan(n, 0, sms)
+        if p.loads == 1:
+            assert p.blocks * p.threads >= p.n_quads, n
+        else:
+            assert p.loads == kernel.LOADS_BIG and p.blocks <= wave, n
+            assert p.n_quads > wave * p.threads, n
+
+
+@pytest.mark.parametrize("start", [0, 2 ** 32 - 3])
+@pytest.mark.parametrize("sms", [1, 8, 132])
+@pytest.mark.parametrize("ptr_mod_16", [0, 4, 12])
+def test_planned_pieces_fold_to_the_whole(start, sms, ptr_mod_16):
+    """Each planned piece folded by the plain version at its own global
+    start, XORed together, equals the numpy fold of the whole, also where
+    the global word index wraps past 2**32."""
+    n = 4 * kernel.THREADS * kernel.LOADS_BIG * 3 + 2 * kernel.THREADS + 7
+    w = _words(n, seed=n + sms + ptr_mod_16)
+    words = _tensor(w)
+    p = kernel.plan(n, ptr_mod_16, sms)
+    h = 0
+    for lo, hi in p.pieces():
+        h ^= int(ref.fold_words_torch(words[lo:hi], start + lo))
+    assert h == jref.fold_words_np(w, start)
+
+
+def test_plan_at_the_main_path_shapes():
+    """At 132 SMs a 4 MiB chunk is one quad a thread in 512 blocks; a
+    256 MiB buffer four quads a thread in one wave of 528 blocks."""
+    chunk = kernel.plan(1 << 20, 0, 132)
+    assert (chunk.threads, chunk.blocks, chunk.loads) == (512, 512, 1)
+    big = kernel.plan(64 << 20, 0, 132)
+    assert (big.threads, big.blocks, big.loads) == (512, 528, 4)
+
+
+def test_plan_constants_mirror_the_source():
+    """The Python mirror's constants are the source's ``plan_for``'s."""
+    src = (Path(kernel.__file__).resolve().parent / "csrc" / "checksum.cu"
+           ).read_text()
+    for name, value in (("kThreads", kernel.THREADS),
+                        ("kLoadsBig", kernel.LOADS_BIG),
+                        ("kThreadsPerSm", kernel.THREADS_PER_SM)):
+        found = re.search(rf"constexpr int {name} = (\d+);", src)
+        assert found and int(found.group(1)) == value, name
+    fields = re.search(r"struct Plan \{(.*?)\};", src, re.S).group(1)
+    assert re.findall(r"int64_t (\w+);", fields) == list(kernel.PLAN_FIELDS)
+
+
+@pytest.mark.parametrize("bad", [dict(n_words=0), dict(ptr_mod_16=2),
+                                 dict(ptr_mod_16=16), dict(sms=0)])
+def test_plan_rejects_what_no_launch_takes(bad):
+    args = dict(n_words=100, ptr_mod_16=0, sms=132)
+    args.update(bad)
+    with pytest.raises(ValueError):
+        kernel.plan(**args)
