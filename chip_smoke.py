@@ -71,12 +71,33 @@ it fails, and each of which prints its wall time:
    must give the same prefill logits on the CPU (plain versions) and on the
    card (kernels).  With prefill ms per wave, decode ms per token, tokens/s
    and the card's busy share.
+10. Training, the fourth main path.  (10a) The kernels' autograd
+   Functions: flash attention at smollm-135m's training batch [8, 1024,
+   9/3, 64] and at qwen3-14b's heads [1, 2048, 40/8, 128] in bf16, the
+   scan at falcon-mamba-7b's width [2, 512, 8192, 16]; each forward held
+   to the plain version (phase 7's and 8's tolerances), each gradient to
+   the all-eager computation's (``GRAD_REL_TOL`` of the largest).  (10)
+   smollm-135m at its published width and depth, seeded bf16 weights,
+   AdamW, 8 x 1024 tokens a step, remat, 12 steps with a checkpoint every
+   6 and one injected failure at step 9 through ``train.loop.train``;
+   checkpoints hashed on the card and replicated from POD0 to POD1 and
+   STORE; then POD0's tree is destroyed, ``restore_anywhere`` restores
+   from POD1 (verified on the card), the restored state must equal the
+   state in memory and serve the same tokens.  Launches asserted with
+   ``==``: flash attention once a layer a forward (remat doubles it) of
+   every executed step, the hash once a 4 MiB read of every file scanned,
+   copied, re-read and verified.  With step ms, tokens/s, the card's busy
+   share in one profiled step, the kernel's and the eager backward's
+   shares, the top device kernels and the checkpoint walls and GB/s.
+   Then falcon-mamba-7b at full width cut to 4 layers (``MAMBA_CUTS``),
+   3 steps, the scan launched once a layer a step.
 
-Each main path (phases 3, 6 and 9) is driven with every kernel's launch
+Each main path (phases 3, 6, 9 and 10) is driven with every kernel's launch
 count set to 0 just before it and read just after.  It prints one
-``{"kernels": [...]}`` JSON line and, last, the result line
-``{"ok": true, "device": {...}}``.  It imports neither JAX nor the JAX
-package.
+``{"kernels": [...]}`` JSON line, each kernel's ``launches`` from its
+serving or replication path and ``launches_training`` from phase 10, and,
+last, the result line ``{"ok": true, "device": {...}}``.  It imports
+neither JAX nor the JAX package.
 """
 from __future__ import annotations
 
@@ -1227,11 +1248,18 @@ PREFILL_TOL = dict(atol=0.12, rtol=0.05)   # tests/test_models.py, bf16
 DECODE_TOL = dict(atol=0.5, rtol=0.03)
 
 
+def device_events(torch, prof) -> list:
+    """The kernels, copies and fills the profiler recorded on the device,
+    without the spans of ``record_function`` ranges it also puts there."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def device_busy_ms(torch, prof) -> float:
     """Device time of every kernel, copy and fill the profiler recorded."""
-    from torch.autograd import DeviceType
-    return sum(e.self_device_time_total for e in prof.events()
-               if e.device_type == DeviceType.CUDA) / 1e3
+    return sum(e.self_device_time_total
+               for e in device_events(torch, prof)) / 1e3
 
 
 def allclose(torch, got, want, tol, what: str) -> float:
@@ -1373,6 +1401,404 @@ def phase_serve(torch, get_config, LM, launch_serve, Engine, flash, scan,
     return out
 
 
+# ------------------------------------------------------------ training (4th)
+# (label, B, T, H, Hkv, hd): smollm-135m's training batch, and one 2048-token
+# sequence at qwen3-14b's heads
+TRAIN_ATTN_CASES = [("smollm_train", 8, 1024, 9, 3, 64),
+                    ("qwen3_14b_train", 1, 2048, 40, 8, 128)]
+# falcon-mamba-7b's width: (B, T, D, N)
+TRAIN_SCAN_CASE = ("falcon_mamba_train", 2, 512, 8192, 16)
+# the Functions' gradients against the all-eager computation's: the largest
+# difference over the largest eager gradient, input by input
+GRAD_REL_TOL = 1e-3
+# the main path: smollm-135m at its published width and depth, one injected
+# failure and restart, checkpoints on POD0 replicated to POD1 and STORE
+TRAIN = dict(steps=12, batch_size=8, seq_len=1024, ckpt_every=6,
+             fail_at_step=9, peak_lr=1e-3, warmup=4, remat=True,
+             microbatches=1, log_every=1)
+TRAIN_REPLICAS = ("POD1", "STORE")
+# three sites of two ~1.9 GB checkpoints each, and the one being written
+TRAIN_DISK_BYTES = 14 * GiB
+TRAIN_SERVE = dict(requests=4, max_new=8, max_batch=4, max_seq=256)
+# falcon-mamba-7b at full width; 64 layers with f32 AdamW state need ~117 GB
+MAMBA_TRAIN_LAYERS = 4
+MAMBA_TRAIN = dict(steps=3, batch_size=2, seq_len=512, peak_lr=1e-3,
+                   warmup=1, remat=False, microbatches=1, log_every=1)
+MAMBA_CUTS = ("falcon-mamba-7b layers 64 -> 4: 64 layers with f32 AdamW "
+              "state need ~117 GB of the card's 80")
+
+
+def rel_err(torch, got, want) -> float:
+    """max |got - want| over max |want|."""
+    got, want = got.float(), want.float()
+    return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)
+            ).item()
+
+
+def grads_of(torch, fn, ins, weights):
+    """(outputs, gradients of sum(output * weight) for every input)."""
+    ins = [x.detach().requires_grad_(True) for x in ins]
+    outs = fn(*ins)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    total = sum((o.float() * w).sum() for o, w in zip(outs, weights))
+    return [o.detach() for o in outs], torch.autograd.grad(total, ins)
+
+
+def phase_train_grads(torch, flash, fops, flash_ref, scan, sops,
+                      scan_ref) -> dict:
+    """The kernels' autograd Functions on the card: forward against the
+    plain version, gradients against the all-eager computation's."""
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    out = {}
+    for label, B, T, H, Hkv, hd in TRAIN_ATTN_CASES:
+        q = torch.randn(B, T, H, hd, generator=gen, device=dev).bfloat16()
+        k, v = (torch.randn(B, T, Hkv, hd, generator=gen, device=dev)
+                .bfloat16() for _ in range(2))
+        w = [torch.randn(B, T, H, hd, generator=gen, device=dev)]
+        before = flash.launches
+        fn = lambda *x: fops.flash_attention(*x)              # noqa: E731
+        (got,), g_fn = grads_of(torch, fn, (q, k, v), w)
+        check(flash.launches == before + 1,
+              f"train grads {label}: the Function launched "
+              f"{flash.launches - before} kernels, not 1")
+        (eager,), g_eager = grads_of(torch, flash_ref.attention_torch,
+                                     (q, k, v), w)
+        tol = ATTN_TOL["bfloat16"]
+        fwd_err = (got.float() - eager.float()).abs().max().item()
+        check(torch.allclose(got.float(), eager.float(), atol=tol, rtol=tol),
+              f"train grads {label}: forward err {fwd_err} beyond {tol}")
+        errs = {n: rel_err(torch, a, b)
+                for n, a, b in zip("qkv", g_fn, g_eager)}
+        check(max(errs.values()) <= GRAD_REL_TOL,
+              f"train grads {label}: gradients {errs} beyond {GRAD_REL_TOL}")
+        it = 5
+        out[label] = {
+            "shape": [B, T, H, Hkv, hd], "forward_max_abs_err": fwd_err,
+            "grad_rel_err": errs,
+            "function_fwd_bwd_ms": host_ms(torch, lambda: grads_of(
+                torch, fn, (q, k, v), w), it),
+            "eager_fwd_bwd_ms": host_ms(torch, lambda: grads_of(
+                torch, flash_ref.attention_torch, (q, k, v), w), it)}
+        log(f"[10] grads {label}: " + json.dumps(out[label]))
+    label, B, T, D, N = TRAIN_SCAN_CASE
+    ins = scan_inputs(torch, gen, B, T, D, N, model=True)
+    w = [torch.randn(B, T, D, generator=gen, device=dev),
+         torch.randn(B, D, N, generator=gen, device=dev)]
+    before = scan.launches
+    got, g_fn = grads_of(torch, sops.selective_scan, ins, w)
+    check(scan.launches == before + 1,
+          f"train grads {label}: the Function launched "
+          f"{scan.launches - before} kernels, not 1")
+    eager, g_eager = grads_of(torch, scan_ref.selective_scan_torch, ins, w)
+    fwd_err = max((a - b).abs().max().item() for a, b in zip(got, eager))
+    check(all(torch.allclose(a, b, **SCAN_TOL) for a, b in zip(got, eager)),
+          f"train grads {label}: forward err {fwd_err} beyond {SCAN_TOL}")
+    errs = {n: rel_err(torch, a, b) for n, a, b in
+            zip(("u", "dt", "Bm", "Cm", "A", "h0"), g_fn, g_eager)}
+    check(max(errs.values()) <= GRAD_REL_TOL,
+          f"train grads {label}: gradients {errs} beyond {GRAD_REL_TOL}")
+    out[label] = {
+        "shape": [B, T, D, N], "forward_max_abs_err": fwd_err,
+        "grad_rel_err": errs,
+        "function_fwd_bwd_ms": host_ms(torch, lambda: grads_of(
+            torch, sops.selective_scan, ins, w), 2, warmup=1),
+        "eager_fwd_bwd_ms": host_ms(torch, lambda: grads_of(
+            torch, scan_ref.selective_scan_torch, ins, w), 2, warmup=1)}
+    log(f"[10] grads {label}: " + json.dumps(out[label]))
+    return out
+
+
+def hash_launches(size: int, chunk: int) -> int:
+    """Launches of the hash kernel for a file of ``size`` bytes streamed in
+    ``chunk``-byte reads: one a read that holds a whole word, and one for
+    a last partial word (``StreamingChecksum``)."""
+    full, rest = divmod(size, chunk)
+    return full + (rest >= 4) + (size % 4 != 0)
+
+
+def ckpt_hash_launches(d: str, chunk: int) -> dict:
+    """The hash launches one checkpoint directory costs: its MANIFEST scan
+    (every file but MANIFEST.json and COMMITTED; a restore's verify reads
+    the same files), and one copy of the whole directory (source stream
+    and destination re-read)."""
+    sizes = {f: os.path.getsize(os.path.join(d, f)) for f in os.listdir(d)}
+    scan = sum(hash_launches(s, chunk) for f, s in sizes.items()
+               if f not in ("MANIFEST.json", "COMMITTED"))
+    copy = 2 * sum(hash_launches(s, chunk) for s in sizes.values())
+    return {"scan": scan, "copy": copy, "bytes": sum(sizes.values())}
+
+
+def train_dir(need: int) -> str:
+    """A temporary directory on the roomier of the temp and build
+    filesystems, or a failure that says how much is free."""
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    roots = [tempfile.gettempdir(), str(build)]
+    free = {r: shutil.disk_usage(r).free for r in roots}
+    best = max(roots, key=free.get)
+    check(free[best] >= need,
+          f"training needs {need / GiB:.0f} GiB free for three sites of "
+          f"checkpoints; free: " + ", ".join(
+              f"{r} {f / GiB:.1f} GiB" for r, f in free.items()))
+    return tempfile.mkdtemp(prefix="repro_torch_train_", dir=best)
+
+
+def phase_train(torch, get_config, LM, Engine, launch_serve, loop, adamw,
+                CheckpointReplicator, chunk_bytes: int, kernel, lane_kernel,
+                flash, scan) -> dict:
+    """The fourth main path: smollm-135m trained at full width and depth
+    with one injected failure, checkpoints hashed on the card and
+    replicated to two sites, the primary lost, and a verified restore from
+    POD1 that serves the same tokens; then falcon-mamba-7b at full width,
+    cut in depth.  Every count is set to 0 just before each run and read
+    just after."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.tree import leaves, unflatten
+    kernels = (kernel, lane_kernel, flash, scan)
+    cfg = get_config("smollm-135m")
+    check(cfg.n_layers == 30, f"smollm-135m has {cfg.n_layers} layers")
+    tmp = train_dir(TRAIN_DISK_BYTES)
+    walls = {"save_s": [], "replicate_s": [], "restore_s": []}
+    saved = {}
+    save, restore = loop.save_checkpoint, loop.restore_checkpoint
+
+    def timed_save(*args, **kw):
+        t = time.perf_counter()
+        d = save(*args, **kw)
+        walls["save_s"].append(time.perf_counter() - t)
+        saved["tree"] = args[2]          # the params and state in memory
+        return d
+
+    def timed_restore(*args, **kw):
+        t = time.perf_counter()
+        got = restore(*args, **kw)
+        walls["restore_s"].append(time.perf_counter() - t)
+        return got
+
+    try:
+        rep = CheckpointReplicator(tmp, primary="POD0",
+                                   replicas=TRAIN_REPLICAS, device=DEVICE)
+        replicate = rep.replicate
+
+        def timed_replicate(rel):
+            t = time.perf_counter()
+            ok = replicate(rel)
+            walls["replicate_s"].append(time.perf_counter() - t)
+            check(ok, f"replication of {rel} did not verify everywhere")
+            return ok
+
+        rep.replicate = timed_replicate
+        loop.save_checkpoint, loop.restore_checkpoint = (timed_save,
+                                                         timed_restore)
+        ckpt_dir = os.path.join(rep.site_dir("POD0"), "ckpts")
+        tc = loop.TrainConfig(ckpt_dir=ckpt_dir, replicator=rep,
+                              device=DEVICE, seed=SEED, **TRAIN)
+        for k in kernels:
+            k.launches = 0                                   # path starts
+        flash.launches_by_path.update(tensor_core=0, cuda_core=0)
+        t0 = time.perf_counter()
+        res = loop.train(cfg, tc)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        shutil.rmtree(ckpt_dir)                              # POD0 is lost
+        t1 = time.perf_counter()
+        got = rep.restore_anywhere("ckpts", saved["tree"])
+        restore_s = time.perf_counter() - t1
+        launches = {"checksum": kernel.launches,
+                    "lane_step": lane_kernel.launches,
+                    "flash": flash.launches, "scan": scan.launches}
+        by_path = dict(flash.launches_by_path)               # path ends
+        loop.save_checkpoint, loop.restore_checkpoint = save, restore
+
+        check(got is not None, "no checkpoint restored after losing POD0")
+        step, tree, d, site = got
+        check(site == "POD1" and step == TRAIN["steps"],
+              f"restored step {step} from {site}, want step "
+              f"{TRAIN['steps']} from POD1")
+        for a, b in zip(leaves(tree), leaves(saved["tree"])):
+            check(a.dtype == b.dtype and torch.equal(a, b),
+                  "the restored checkpoint differs from the state in memory")
+        check(res.restarts == 1 and res.final_step == TRAIN["steps"],
+              f"restarts {res.restarts}, final step {res.final_step}")
+        losses = res.losses
+        executed = len(losses)
+        # steps 0..fail-1, then the steps from the last checkpoint on
+        last_ckpt = TRAIN["fail_at_step"] // TRAIN["ckpt_every"] * TRAIN[
+            "ckpt_every"]
+        check(executed == TRAIN["fail_at_step"] + TRAIN["steps"] - last_ckpt,
+              f"{executed} steps executed")
+        check(all(x == x and abs(x) < float("inf") for x in losses),
+              f"losses not finite: {losses}")
+        first, last = (sum(losses[:3]) / 3, sum(losses[-3:]) / 3)
+        check(last < first, f"loss did not fall: {first} -> {last}")
+
+        # the hash: every file scanned at a save, copied to each replica
+        # (source stream and destination re-read), and verified at the
+        # restart's restore and at the last restore (the POD1 copies)
+        pod1 = os.path.join(rep.site_dir("POD1"), "ckpts")
+        per = {s: ckpt_hash_launches(os.path.join(pod1, f"step-{s:06d}"),
+                                     chunk_bytes)
+               for s in (last_ckpt, TRAIN["steps"])}
+        want_hash = sum(p["scan"] + len(TRAIN_REPLICAS) * p["copy"]
+                        for p in per.values()) + sum(
+            per[s]["scan"] for s in (last_ckpt, TRAIN["steps"]))
+        remat = 1 + int(TRAIN["remat"])
+        want = {"checksum": want_hash, "lane_step": 0, "scan": 0,
+                "flash": cfg.n_layers * executed * remat
+                * TRAIN["microbatches"]}
+        check(launches == want,
+              f"training launches {launches}, want {want} ({executed} "
+              f"steps x {cfg.n_layers} layers x {remat} forwards)")
+        check(by_path == {"tensor_core": want["flash"], "cuda_core": 0},
+              f"training flash launches by kernel {by_path}")
+
+        # the restored params serve the tokens of the params in memory
+        tokens = []
+        for params in (tree["params"], saved["tree"]["params"]):
+            eng = Engine(cfg, model=LM(cfg, device=DEVICE, params=params),
+                         max_batch=TRAIN_SERVE["max_batch"],
+                         max_seq=TRAIN_SERVE["max_seq"])
+            _, done, _ = launch_serve.serve(
+                cfg, TRAIN_SERVE["requests"], TRAIN_SERVE["max_new"],
+                engine=eng, seed=SEED)
+            tokens.append([r.out_tokens for r in
+                           sorted(done, key=lambda r: r.rid)])
+        check(tokens[0] == tokens[1],
+              "the restored checkpoint serves other tokens")
+
+        ckpt_bytes = per[TRAIN["steps"]]["bytes"]
+        gbps = lambda n, s: [n / x / 1e9 for x in s]         # noqa: E731
+        out = {
+            "config": "smollm-135m, 30 layers, d 576, 9/3 heads, bf16, "
+                      "AdamW", **TRAIN, "replicas": list(TRAIN_REPLICAS),
+            "executed_steps": executed, "restarts": res.restarts,
+            "restored_from_site": site, "restored_step": step,
+            "losses": losses, "launches": launches,
+            "flash_launches_by_path": by_path,
+            "hash_launches_per_checkpoint": per,
+            "train_wall_s": train_s, "loop_wall_s": res.wall_s,
+            "checkpoint_bytes": ckpt_bytes,
+            "save_s": walls["save_s"],
+            "save_gb_per_s": gbps(ckpt_bytes, walls["save_s"]),
+            "replicate_s": walls["replicate_s"],
+            "replicate_gb_per_s": gbps(ckpt_bytes * len(TRAIN_REPLICAS),
+                                       walls["replicate_s"]),
+            "restart_restore_s": walls["restore_s"],
+            "final_restore_s": restore_s,
+            "final_restore_gb_per_s": ckpt_bytes / restore_s / 1e9,
+            "serve_tokens_equal": True}
+    finally:
+        loop.save_checkpoint, loop.restore_checkpoint = save, restore
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # steady-state steps of the restored model, then one profiled step
+    model = LM(cfg, device=DEVICE, params=tree["params"],
+               remat=TRAIN["remat"])
+    model.requires_grad_(True)
+    state = tree["opt"]
+    step_fn = loop.make_train_step(model, adamw.AdamWConfig(), tc)
+    data = loop.for_model(cfg, TRAIN["batch_size"], TRAIN["seq_len"], SEED)
+    batch = {k: torch.from_numpy(v).to(DEVICE)
+             for k, v in data.batch_at(TRAIN["steps"]).items()}
+
+    def one_step():
+        nonlocal state
+        _, state, loss, _ = step_fn(state, batch)
+        return float(loss)
+
+    one_step()
+    torch.cuda.synchronize()
+    n = 5
+    t0 = time.perf_counter()
+    for _ in range(n):
+        one_step()
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / n
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        one_step()
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t1) * 1e3
+    busy = device_busy_ms(torch, prof)
+    kern = sum(a.self_device_time_total for a in prof.key_averages()
+               if "flash_fwd_wgmma_kernel" in a.key) / 1e3
+    # the kernels the Function's backward launches, through its range
+    eager_bwd = sum(e.device_time_total for e in prof.events()
+                    if e.name == "flash_attention_eager_backward"
+                    and e.device_type == DeviceType.CPU) / 1e3
+    by_name = {}
+    for e in device_events(torch, prof):
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.self_device_time_total / 1e3, n + 1)
+    top = sorted(((ms, n, name) for name, (ms, n) in by_name.items()),
+                 reverse=True)
+    # the step's two halves apart: forward and backward, then AdamW
+    params = model.parameter_tree()
+
+    def fwd_bwd():
+        loss, _ = model.loss_fn(batch)
+        return torch.autograd.grad(loss, leaves(params))
+
+    grads = unflatten(params, list(fwd_bwd()))
+    lr = torch.tensor(TRAIN["peak_lr"], device=DEVICE)
+    fwd_bwd_ms = host_ms(torch, fwd_bwd, 3, warmup=1)
+    update_ms = host_ms(torch, lambda: adamw.update(grads, state, lr), 3,
+                        warmup=1)
+    tokens_per_step = TRAIN["batch_size"] * TRAIN["seq_len"]
+    out.update({
+        "step_ms": step_s * 1e3, "tokens_per_s": tokens_per_step / step_s,
+        "profiled_step_wall_ms": prof_wall, "device_busy_ms": busy,
+        "device_busy_share": busy / prof_wall,
+        "device_busy_over_step_ms": busy / (step_s * 1e3),
+        "device_launches_per_step": sum(n for _, n, _ in top),
+        "fwd_bwd_ms": fwd_bwd_ms, "adamw_update_ms": update_ms,
+        "top_device_ops_ms_count": [[ms, n, k[:80]] for ms, n, k in
+                                    top[:12]],
+        "flash_kernel_ms": kern,
+        "flash_kernel_share_of_busy": kern / busy if busy else None,
+        "eager_backward_ms": eager_bwd,
+        "eager_backward_share_of_busy": eager_bwd / busy if busy else None})
+    log("[10] train smollm-135m: " + json.dumps(out))
+    del model, state, step_fn, tree, saved, batch, grads
+    torch.cuda.empty_cache()
+
+    # falcon-mamba-7b at full width, cut in depth
+    mcfg = get_config("falcon-mamba-7b").with_(n_layers=MAMBA_TRAIN_LAYERS)
+    log(f"[10] reduced: {MAMBA_CUTS}")
+    for k in kernels:
+        k.launches = 0                                       # path starts
+    t0 = time.perf_counter()
+    mres = loop.train(mcfg, loop.TrainConfig(device=DEVICE, seed=SEED,
+                                             **MAMBA_TRAIN))
+    torch.cuda.synchronize()
+    mwall = time.perf_counter() - t0
+    mlaunches = {"checksum": kernel.launches,
+                 "lane_step": lane_kernel.launches,
+                 "flash": flash.launches, "scan": scan.launches}  # path ends
+    mwant = {"checksum": 0, "lane_step": 0, "flash": 0,
+             "scan": MAMBA_TRAIN_LAYERS * len(mres.losses)
+             * (1 + int(MAMBA_TRAIN["remat"])) * MAMBA_TRAIN["microbatches"]}
+    check(len(mres.losses) == MAMBA_TRAIN["steps"]
+          and mres.final_step == MAMBA_TRAIN["steps"],
+          f"falcon-mamba-7b ran {len(mres.losses)} steps")
+    check(mlaunches == mwant,
+          f"falcon-mamba-7b training launches {mlaunches}, want {mwant}")
+    check(all(x == x and abs(x) < float("inf") for x in mres.losses),
+          f"falcon-mamba-7b losses not finite: {mres.losses}")
+    mamba = {"config": f"falcon-mamba-7b at d 4096, N 16, "
+                       f"{MAMBA_TRAIN_LAYERS} of 64 layers, bf16, AdamW",
+             "reduced": MAMBA_CUTS, **MAMBA_TRAIN, "losses": mres.losses,
+             "launches": mlaunches, "wall_s": mwall,
+             "loop_wall_s": mres.wall_s}
+    log("[10] train falcon-mamba-7b: " + json.dumps(mamba))
+    torch.cuda.empty_cache()
+    return {"smollm-135m": out, "falcon-mamba-7b": mamba}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1383,6 +1809,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     import numpy as np
 
+    from repro_torch.checkpoint.replicate import CheckpointReplicator
     from repro_torch.configs import get_config
     from repro_torch.core import campaign, integrity
     from repro_torch.core.transport import _CHUNK_BYTES
@@ -1392,15 +1819,19 @@ def main() -> None:
     from repro_torch.kernels.checksum import checksum as kernel
     from repro_torch.kernels.checksum import ops, ref
     from repro_torch.kernels.flash_attention import flash_attention as flash
+    from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention import ref as flash_ref
     from repro_torch.kernels.lane_step import lane_step as lane_kernel
     from repro_torch.kernels.lane_step import ref as lane_ref
     from repro_torch.kernels.mamba_scan import mamba_scan as scan
+    from repro_torch.kernels.mamba_scan import ops as scan_ops
     from repro_torch.kernels.mamba_scan import ref as scan_ref
     from repro_torch.launch import serve as launch_serve
     from repro_torch.models.model import LM
+    from repro_torch.optim import adamw
     from repro_torch.scenarios import registry
     from repro_torch.serve.engine import Engine
+    from repro_torch.train import loop
 
     t0 = time.perf_counter()
     walls = {}
@@ -1440,6 +1871,22 @@ def main() -> None:
     flash_entry["launches_by_path"] = served["smollm-135m"][
         "flash_launches_by_path"]
     scan_entry["launches"] = served["falcon-mamba-7b"]["launches"]["scan"]
+    grads = timed("10a", phase_train_grads, torch, flash, flash_ops,
+                  flash_ref, scan, scan_ops, scan_ref)
+    trained = timed(10, phase_train, torch, get_config, LM, Engine,
+                    launch_serve, loop, adamw, CheckpointReplicator,
+                    _CHUNK_BYTES, kernel, lane_kernel, flash, scan)
+    # the fourth path's launches: smollm-135m's run (the hash, flash
+    # attention) and falcon-mamba-7b's (the scan)
+    smol = trained["smollm-135m"]["launches"]
+    for e, key in ((entry, "checksum"), (lane_entry, "lane_step"),
+                   (flash_entry, "flash")):
+        e["launches_training"] = smol[key]
+    scan_entry["launches_training"] = trained["falcon-mamba-7b"][
+        "launches"]["scan"]
+    flash_entry["training_grads"] = {k: v for k, v in grads.items()
+                                     if k != TRAIN_SCAN_CASE[0]}
+    scan_entry["training_grads"] = grads[TRAIN_SCAN_CASE[0]]
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "repro"))
     check(not leaked, f"JAX-side modules were imported: {leaked}")

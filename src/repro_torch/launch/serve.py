@@ -1,15 +1,18 @@
 """Serving launcher: initialise a model and serve a batch of requests.
 
     python -m repro_torch.launch.serve --arch falcon-mamba-7b --requests 8
-        [--max-new 16] [--max-batch 4] [--max-seq 256] [--full]
-        [--device cuda|cpu] [--seed 0]
+        [--ckpt-dir DIR] [--max-new 16] [--max-batch 4] [--max-seq 256]
+        [--full] [--device cuda|cpu] [--seed 0]
 
 The flags are the JAX package's launcher's, plus ``--device`` (default
 ``cuda``; ``cpu`` runs the kernels' plain versions).  Weights are drawn from
 ``--seed`` by the port's own init; ``--smoke`` (the default) serves the
-reduced config, ``--full`` the published one.  ``--ckpt-dir`` is refused:
-restoring a checkpoint waits for the port of ``checkpoint/ckpt.py`` (ROADMAP
-Queue A, step 8).
+reduced config, ``--full`` the published one.  ``--ckpt-dir`` loads the
+latest verified checkpoint into ``{"params": ...}`` (falling back to the
+init where there is none), as the reference does: a checkpoint of either
+package that holds params alone.  A training checkpoint (params and
+optimizer state) has more leaves than that example tree and raises
+``ValueError``, in the reference as here.
 """
 from __future__ import annotations
 
@@ -20,9 +23,11 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch.checkpoint.ckpt import restore_checkpoint
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.kernels.device import Device
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.model import LM
 from repro_torch.serve.engine import Engine, Request
 
 
@@ -36,6 +41,22 @@ def prompts(cfg: ModelConfig, n: int, max_seq: int, seed: int
         plen = int(rng.integers(4, max_seq // 4))
         out.append(rng.integers(0, cfg.vocab_size, plen))
     return out
+
+
+def load_model(cfg: ModelConfig, device: Device = "cuda", seed: int = 0,
+               ckpt_dir: Optional[str] = None) -> LM:
+    """An ``LM`` of ``cfg`` on ``device`` with weights from ``seed``,
+    replaced by the latest verified checkpoint's params under ``ckpt_dir``
+    where there is one."""
+    model = LM(cfg, device=device, seed=seed)
+    if ckpt_dir:
+        got = restore_checkpoint(ckpt_dir, {"params": model.params()},
+                                 device=device)
+        if got is not None:
+            step, tree, d = got
+            model.load_params(tree["params"])
+            print(f"loaded checkpoint step {step} from {d}")
+    return model
 
 
 def serve(cfg: ModelConfig, requests: int = 8, max_new: int = 16,
@@ -67,15 +88,15 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.ckpt_dir:
-        ap.error("--ckpt-dir: restoring a checkpoint is not ported yet "
-                 "(ROADMAP Queue A, step 8: checkpoint/ckpt.py)")
 
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
-    eng, done, wall = serve(cfg, args.requests, args.max_new, args.max_batch,
-                            args.max_seq, args.device, args.seed)
+    model = load_model(cfg, args.device, args.seed, args.ckpt_dir)
+    eng = Engine(cfg, model=model, max_batch=args.max_batch,
+                 max_seq=args.max_seq)
+    eng, done, wall = serve(cfg, args.requests, args.max_new, engine=eng,
+                            seed=args.seed)
     toks = sum(len(r.out_tokens) for r in done)
     print(f"served {len(done)} requests / {toks} tokens in {wall:.1f}s "
           f"({eng.waves} waves, {toks / max(wall, 1e-9):.1f} tok/s, "

@@ -11,9 +11,15 @@ Every other pattern or option raises ``NotImplementedError`` naming the
 ROADMAP item that ports it.  The reference scans over stacked parameter
 banks to keep its compiled graph small; here each layer is an ``nn.Module``
 in an ``nn.ModuleList``, run in a Python loop, and a layer's parameters are
-the reference's, unstacked, in its ``(in, out)`` layout.  Parameters are
-frozen (``requires_grad=False``): serving does not train, and the kernels
-are forward-only.  ``loss_fn`` (training) is not ported yet.
+the reference's, unstacked, in its ``(in, out)`` layout.  Parameters start
+frozen (``requires_grad=False``), and serving runs under ``no_grad``.  A
+trainer calls ``requires_grad_()`` and differentiates ``loss_fn``: the
+kernels' ops then go through their ``autograd.Function``s, whose backward
+is eager PyTorch.  ``load_params`` writes a parameter tree into the model
+(the optimizer's new bf16 params, a restored checkpoint), leaf dtypes
+included.  ``remat`` recomputes each block in the backward pass
+(``torch.utils.checkpoint``), as the reference's per-layer
+``jax.checkpoint`` does in its train mode.
 
 Caches are ``{"blocks": [per-layer state]}``.  KV caches are written in
 place (the new k and v cast to the cache's dtype); a Mamba1 layer's state is
@@ -28,7 +34,9 @@ from typing import Any, Dict, List, Mapping, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch import tree as T
 from repro_torch.kernels.device import Device, require_device
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSM
@@ -120,6 +128,13 @@ class ParamTree(nn.Module):
                    self._modules.items())
         return out
 
+    def parameter_tree(self) -> dict:
+        """The ``nn.Parameter``s themselves, in the mapping of ``tree``."""
+        out = dict(self._parameters)
+        out.update((name, m.parameter_tree()) for name, m in
+                   self._modules.items())
+        return out
+
 
 def init_attn_block(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
     return {"ln1": L.init_rmsnorm(cfg.d_model, dtype, gen.device),
@@ -174,11 +189,13 @@ class LM(nn.Module):
 
     def __init__(self, cfg: ModelConfig, dtype=torch.bfloat16,
                  device: Device = "cuda",
-                 params: Optional[Mapping[str, Any]] = None, seed: int = 0):
+                 params: Optional[Mapping[str, Any]] = None, seed: int = 0,
+                 remat: bool = True):
         super().__init__()
         self.pattern = check_ported(cfg)
         self.cfg = cfg
         self.dtype = dtype
+        self.remat = remat
         self.device = require_device(device)
         if params is None:
             params = self.init(seed)
@@ -213,6 +230,27 @@ class LM(nn.Module):
         """The parameter tree, as ``init`` returns it, on ``device``."""
         return dict(self.io.tree(device),
                     blocks=[b.tree(device) for b in self.blocks])
+
+    def parameter_tree(self) -> dict:
+        """The ``nn.Parameter``s, in the tree of ``params``."""
+        return dict(self.io.parameter_tree(),
+                    blocks=[b.parameter_tree() for b in self.blocks])
+
+    @torch.no_grad()
+    def load_params(self, params: Mapping[str, Any]) -> None:
+        """Make ``params`` (a tree of ``params``' structure) the model's
+        parameters, each leaf moved to the device in its own dtype: the
+        optimizer's new params are bf16 whatever the model's dtype, as in
+        the reference."""
+        got, want = T.leaves(params), T.leaves(self.parameter_tree())
+        if len(got) != len(want):
+            raise ValueError(f"{len(got)} leaves for a model of "
+                             f"{len(want)}")
+        for p, new in zip(want, got):
+            if tuple(new.shape) != tuple(p.shape):
+                raise ValueError(f"a leaf of shape {tuple(new.shape)} for a "
+                                 f"parameter of {tuple(p.shape)}")
+            p.data = new.to(self.device)
 
     # ----------------------------------------------------------------- cache
     def init_cache(self, batch: int, max_seq: int) -> Cache:
@@ -249,14 +287,16 @@ class LM(nn.Module):
         """The layer stack and the final norm.  Without a cache, the forward
         over positions arange(T); with one, serving from position ``t``."""
         serving = cache is not None
+        remat = self.remat and not serving and torch.is_grad_enabled()
         new_states = []
         for i, block in enumerate(self.blocks):
             state = cache["blocks"][i] if serving else None
-            if self.pattern.kind == "uniform_attn":
-                x, state = block(x, positions, state, t,
-                                 self.cfg.sliding_window)
+            args = ((x, positions, state, t, self.cfg.sliding_window)
+                    if self.pattern.kind == "uniform_attn" else (x, state))
+            if remat:
+                x, state = checkpoint(block, *args, use_reentrant=False)
             else:
-                x, state = block(x, state)
+                x, state = block(*args)
             new_states.append(state)
         x = L.rmsnorm(self.io["final_norm"], x, self.cfg.norm_eps)
         return x, ({"blocks": new_states} if serving else None)
@@ -269,6 +309,24 @@ class LM(nn.Module):
         positions = torch.arange(T, device=self.device)[None].expand(B, T)
         x, _ = self.backbone(x, positions)
         return self.unembed(x)
+
+    # ------------------------------------------------------------------ loss
+    def loss_fn(self, batch: Mapping[str, Any], aux_weight: float = 0.01
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """(loss, {"ce", "aux"}) of ``batch`` ({"tokens", "labels"}, (B, T)
+        integers): the mean cross-entropy of the causal forward, plus
+        ``aux_weight`` times the auxiliary loss, which is 0 for both ported
+        patterns (it is MoE's).  Differentiable where grad is enabled."""
+        x = self.embed(torch.as_tensor(batch["tokens"]))
+        B, T = x.shape[:2]
+        positions = torch.arange(T, device=self.device)[None].expand(B, T)
+        x, _ = self.backbone(x, positions)
+        logits = self.unembed(x)
+        labels = torch.as_tensor(batch["labels"]).to(self.device)
+        ce = softmax_xent(logits, labels)
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        loss = ce + aux_weight * aux
+        return loss, {"ce": ce, "aux": aux}
 
     # --------------------------------------------------------------- serving
     @torch.no_grad()
@@ -290,3 +348,16 @@ class LM(nn.Module):
         positions = torch.full((x.shape[0], 1), t, device=self.device)
         x, cache = self.backbone(x, positions, cache, t)
         return self.unembed(x), cache
+
+
+# ------------------------------------------------------------------ loss util
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy of ``logits`` (..., V) at integer ``labels``
+    (...), in f32.  The reference picks the label's logit with a one-hot
+    product (partition-friendly over a sharded vocab); a gather picks the
+    same value."""
+    lf = logits.float()
+    m = torch.amax(lf, dim=-1, keepdim=True)
+    lse = torch.log(torch.sum(torch.exp(lf - m), dim=-1)) + m[..., 0]
+    picked = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    return torch.mean(lse - picked)

@@ -3,7 +3,8 @@
 A port of the Mamba1 half of the JAX package's ``models/ssm.py``.  For T > 1
 the scan goes to the selective-scan op (B4): the CUDA kernel for tensors on
 the card, its plain version on the CPU; it replaces the reference's chunked
-associative scan, which computes the same recurrence.  The single-step
+associative scan, which computes the same recurrence.  Its gradient on the
+card is the op's eager backward (``kernels/mamba_scan/ops.py``).  The single-step
 recurrence of decode stays plain PyTorch.  All scan math is f32; the
 projections run in the parameters' dtype.  Mamba2 (SSD) is not ported yet
 (ROADMAP Queue A, step 7: hybrid).
@@ -104,7 +105,10 @@ def mamba1_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
         y = torch.einsum("bdn,bn->bd", h, C_[:, 0])[:, None]
         hT = h
     else:
-        y, hT = selective_scan(xc, dt, B_, C_, A, h0)
+        # A is bf16 once an optimizer step has cast A_log (as the
+        # reference's does); the scan takes it in f32, where the reference's
+        # dt * A promotes it
+        y, hT = selective_scan(xc, dt, B_, C_, A.float(), h0)
     y = y + p["D"] * xc
     y = y * F.silu(z.float())
     out = y.to(x.dtype) @ p["out_proj"]

@@ -187,7 +187,12 @@ def test_importing_every_port_module_loads_neither_jax_nor_repro():
               "repro_torch.serve.engine", "repro_torch.launch.serve",
               "repro_torch.configs.falcon_mamba_7b",
               "repro_torch.kernels.flash_attention.ops",
-              "repro_torch.kernels.mamba_scan.ops"):
+              "repro_torch.kernels.mamba_scan.ops", "repro_torch.tree",
+              "repro_torch.models.frontends", "repro_torch.optim.adamw",
+              "repro_torch.optim.schedule", "repro_torch.data.synthetic",
+              "repro_torch.data.sharded", "repro_torch.checkpoint.ckpt",
+              "repro_torch.checkpoint.replicate", "repro_torch.train.loop",
+              "repro_torch.launch.train"):
         assert m in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"

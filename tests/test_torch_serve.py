@@ -22,9 +22,12 @@ from repro.configs import get_config as jget_config
 from repro.models.model import LM as JLM
 from repro.serve.engine import Engine as JEngine
 from repro.serve.engine import _bucket as j_bucket
+from repro_torch.checkpoint.ckpt import save_checkpoint
 from repro_torch.configs import get_config
 from repro_torch.kernels.flash_attention import flash_attention as fkernel
+from repro_torch.models.model import LM
 from repro_torch.models.params import params_from_jax
+from repro_torch.optim import adamw
 from repro_torch.serve.engine import Engine, _bucket
 
 REPO = Path(__file__).resolve().parents[1]
@@ -116,7 +119,14 @@ def test_cli_serves_on_the_cpu():
 
 
 def test_cli_refuses_a_checkpoint_dir(tmp_path):
+    """--ckpt-dir restores by the example tree {"params": ...}, as the
+    reference does, so a training checkpoint (params and optimizer state)
+    is refused; a params-only one is served (test_torch_checkpoint.py)."""
+    model = LM(get_config(ARCH).smoke(), device="cpu")
+    save_checkpoint(str(tmp_path), 2, {"params": model.params(),
+                                       "opt": adamw.init(model.params())},
+                    device="cpu")
     out = _cli("--arch", ARCH, "--device", "cpu", "--ckpt-dir",
                str(tmp_path))
-    assert out.returncode == 2
-    assert "not ported yet" in out.stderr
+    assert out.returncode != 0
+    assert "ValueError" in out.stderr and "leaves for a tree of" in out.stderr
