@@ -42,8 +42,9 @@ it fails, and each of which prints its wall time:
 7. Flash attention: the kernel against its plain PyTorch version on the
    card (2.5e-2 in bf16, 2e-5 in f32, ``tests/test_kernels.py``'s
    tolerances) at smollm-135m's serve shape, a ragged T, a window at
-   hd 128, hd 32, qwen3-14b's serve shape, f32 (the CUDA-core kernel), and
-   one train_4k sequence at qwen3-14b's heads, and over strided KV-cache
+   hd 128, hd 32, qwen3-14b's serve shape, f32 (the CUDA-core kernel), one
+   train_4k sequence at qwen3-14b's heads and qwen3-moe-30b-a3b's serve
+   shape [4, 256, 32/4, 128] (a GQA group of 8), and over strided KV-cache
    views; each bf16 case on the tensor-core kernel, with the block it
    launched.  The kernel's time and ``scaled_dot_product_attention``'s are
    both the profiler's device time per call (every kernel the call
@@ -91,13 +92,39 @@ it fails, and each of which prints its wall time:
    shares, the top device kernels and the checkpoint walls and GB/s.
    Then falcon-mamba-7b at full width cut to 4 layers (``MAMBA_CUTS``),
    3 steps, the scan launched once a layer a step.
+11. The replication CLI (host only, no kernel may launch):
+   ``repro_torch.scenarios.run.main`` on paper-2022 at the engine_comparison
+   shape must give the JAX package's 474 iterations / 105.613 d / 703
+   faults; ``--kill-after 200 --checkpoint-dir`` must exit 3 and
+   ``--resume`` end on the same trajectory and digest; ``--obs`` must leave
+   the trajectory alone and render through ``repro_torch.obs.report``; a
+   two-scenario sweep writes to a temporary ``--out``.  Each run's wall time.
+12. MoE serving: qwen3-moe-30b-a3b (48 layers, GQA 32/4 at hd 128, 128
+   experts top-8) and deepseek-v2-lite-16b (27 layers, MLA, 64 experts
+   top-6 and 2 shared) at their published configs, seeded bf16 weights, with
+   phase 9's traffic; flash attention must launch once a layer a prefill
+   wave for qwen3-moe, all on the tensor-core kernel, and never for
+   deepseek (MLA is eager).  Prefill plus decode against the forward in
+   f32 with drop-free capacity at 8 layers (``MOE_CUTS``).  Prefill ms per
+   wave, decode ms per token, tokens/s, peak memory, and the card's busy
+   share and top kernels over one more wave, profiled.
+13. MoE training through ``train.loop.train``, 3 steps of 4 x 1024 tokens
+   with remat, each model at full width and cut in depth
+   (``MOE_TRAIN_CUTS``): a finite loss and ``aux``; qwen3-moe's flash
+   launches ``==`` layers x steps x 2; deepseek-v2-lite's one checkpoint
+   (params and AdamW state) hashed by the integrity kernel at its save and
+   its restore (launches ``==`` the files' 4 MiB reads), restored equal to
+   the state in memory with the router's AdamW state f32 and the lead block
+   a list.  Step ms, tokens/s, forward+backward and AdamW ms, peak memory,
+   checkpoint GB/s.
 
-Each main path (phases 3, 6, 9 and 10) is driven with every kernel's launch
-count set to 0 just before it and read just after.  It prints one
-``{"kernels": [...]}`` JSON line, each kernel's ``launches`` from its
-serving or replication path and ``launches_training`` from phase 10, and,
-last, the result line ``{"ok": true, "device": {...}}``.  It imports
-neither JAX nor the JAX package.
+Each main path (phases 3, 6, 9, 10, 12 and 13) is driven with every
+kernel's launch count set to 0 just before it and read just after.  It
+prints one ``{"kernels": [...]}`` JSON line, each kernel's ``launches``
+from its serving or replication path, ``launches_training`` from phase 10
+and the MoE paths' launches (``launches_moe_serve``,
+``launches_moe_training``), and, last, the result line ``{"ok": true,
+"device": {...}}``.  It imports neither JAX nor the JAX package.
 """
 from __future__ import annotations
 
@@ -924,14 +951,16 @@ PEAK_SFU_PER_S = 132 * 16 * 1.98e9
 ATTN_TOL = {"bfloat16": 2.5e-2, "float32": 2e-5}   # tests/test_kernels.py
 # (label, B, T, H, Hkv, hd, window, dtype); "main" is smollm-135m's serve
 # shape, "qwen3_14b_serve" qwen3-14b's, "train_4k" one sequence of
-# train_4k at qwen3-14b's heads
+# train_4k at qwen3-14b's heads, "qwen3_moe_serve" qwen3-moe-30b-a3b's
+# serve shape (a GQA group of 8)
 FLASH_CASES = [("main", 4, 256, 9, 3, 64, None, "bfloat16"),
                ("ragged_T200", 2, 200, 9, 3, 64, None, "bfloat16"),
                ("window128_hd128", 1, 384, 2, 2, 128, 128, "bfloat16"),
                ("hd32", 2, 256, 8, 2, 32, None, "bfloat16"),
                ("qwen3_14b_serve", 4, 256, 40, 8, 128, None, "bfloat16"),
                ("f32_window64", 2, 256, 8, 8, 32, 64, "float32"),
-               ("train_4k", 1, 4096, 40, 8, 128, None, "bfloat16")]
+               ("train_4k", 1, 4096, 40, 8, 128, None, "bfloat16"),
+               ("qwen3_moe_serve", 4, 256, 32, 4, 128, None, "bfloat16")]
 # the kernel each input type launches
 FLASH_KERNELS = {"bfloat16": ("tensor_core", "flash_fwd_wgmma_kernel"),
                  "float32": ("cuda_core", "flash_fwd_kernel")}
@@ -1052,7 +1081,9 @@ def phase_flash(torch, kernel, ref, card: str) -> dict:
             "library": "F.scaled_dot_product_attention(is_causal=True, "
                        "enable_gqa=True), profiler device time per call",
             "shape": "smollm-135m serve [B=4, T=256, H=9, Hkv=3, hd=64] bf16",
-            "at_train_4k": timings["train_4k"], "cases": timings,
+            "at_train_4k": timings["train_4k"],
+            "at_qwen3_moe_serve": timings["qwen3_moe_serve"],
+            "cases": timings,
             "card": card}
 
 
@@ -1240,9 +1271,25 @@ def phase_scan(torch, kernel, ref, card: str) -> dict:
 
 
 # ------------------------------------------------------------ serving (3rd)
-# (arch, layers, the kernel its prefill launches, that kernel's name)
-SERVE_ARCHS = (("smollm-135m", 30, "flash", "flash_fwd_wgmma_kernel"),
-               ("falcon-mamba-7b", 64, "scan", "selective_scan_kernel"))
+# (arch, layers, flash and scan launches a prefill wave, the name of the
+# kernel its prefill launches, requests profiled, the f32 check's cut: its
+# layers and the MoE capacity factor, or None for the published config)
+SERVE_ARCHS = (("smollm-135m", 30, {"flash": 30, "scan": 0},
+                "flash_fwd_wgmma_kernel", 8, None),
+               ("falcon-mamba-7b", 64, {"flash": 0, "scan": 64},
+                "selective_scan_kernel", 8, None))
+# qwen3-moe's GQA runs B3 in every layer; deepseek-v2-lite's MLA is eager
+# (q.k head dim 192, v 128).  A wave launches ~10^5 kernels, so one wave is
+# profiled.  The f32 check runs at a depth whose f32 weights fit, drop-free
+MOE_CHECK = (8, 8.0)
+MOE_SERVE_ARCHS = (("qwen3-moe-30b-a3b", 48, {"flash": 48, "scan": 0},
+                    "flash_fwd_wgmma_kernel", 4, MOE_CHECK),
+                   ("deepseek-v2-lite-16b", 27, {"flash": 0, "scan": 0},
+                    None, 4, MOE_CHECK))
+MOE_CUTS = (f"the f32 prefill/decode check: {MOE_CHECK[0]} layers of 48 "
+            f"(qwen3-moe) and of 27 (deepseek-v2-lite), capacity_factor "
+            f"1.25 -> {MOE_CHECK[1]} (no drops); the card-vs-CPU cut in f32 "
+            f"at that capacity; the bf16 serving runs at full depth")
 SERVE = dict(requests=8, max_new=16, max_batch=4, max_seq=1024)
 PREFILL_TOL = dict(atol=0.12, rtol=0.05)   # tests/test_models.py, bf16
 DECODE_TOL = dict(atol=0.5, rtol=0.03)
@@ -1276,13 +1323,17 @@ def consistency(torch, model, toks, check_tol: bool) -> dict:
     """prefill(T-8) + 8 decode steps against the forward over T tokens, and
     the forward over T-8 tokens against the first T-8 of that forward (the
     same sums in matmuls of another shape).  Asserted at
-    tests/test_models.py's tolerances when ``check_tol``."""
+    tests/test_models.py's tolerances when ``check_tol``; an f32 model's
+    caches are f32."""
     T = toks.shape[1]
     Tp = T - 8
     full = model(toks).float()
     short = model(toks[:, :Tp]).float()
-    logits, cache = model.prefill(toks[:, :Tp],
-                                  model.init_cache(toks.shape[0], T + 8))
+    cache = model.init_cache(toks.shape[0], T + 8)
+    if model.dtype == torch.float32:
+        cache = {k: [type(c)(*(x.float() for x in c)) for c in v]
+                 for k, v in cache.items()}
+    logits, cache = model.prefill(toks[:, :Tp], cache)
     errs = {"forward_short_vs_long": (short - full[:, :Tp]).abs().max()
             .item(),
             "prefill": (logits[:, 0].float() - full[:, Tp - 1]).abs().max()
@@ -1301,19 +1352,24 @@ def consistency(torch, model, toks, check_tol: bool) -> dict:
 
 
 def phase_serve(torch, get_config, LM, launch_serve, Engine, flash, scan,
-                others) -> dict:
-    """The third main path: full-width serving of smollm-135m and
-    falcon-mamba-7b through the engine on the card, with every count set to
-    0 just before each run and read just after."""
+                others, archs=SERVE_ARCHS, label: int = 9) -> dict:
+    """Full-width serving through the engine on the card, of smollm-135m and
+    falcon-mamba-7b (phase 9) or of the MoE archs (phase 12), with every
+    count set to 0 just before each run and read just after."""
+    import dataclasses
+
     from torch.profiler import ProfilerActivity, profile
     out = {}
-    for arch, n_layers, kernel_key, kernel_name in SERVE_ARCHS:
+    for arch, n_layers, per_wave, kernel_name, n_prof, f32_cut in archs:
         cfg = get_config(arch)
         check(cfg.n_layers == n_layers, f"{arch} has {cfg.n_layers} layers")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         model = LM(cfg, device=DEVICE, seed=SEED)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in model.parameters())
         eng = Engine(cfg, model=model, max_batch=SERVE["max_batch"],
                      max_seq=SERVE["max_seq"])
         for k in (flash, scan, *others):
@@ -1329,53 +1385,74 @@ def phase_serve(torch, get_config, LM, launch_serve, Engine, flash, scan,
         check(len(done) == SERVE["requests"] and all(
             r.done and len(r.out_tokens) == SERVE["max_new"] for r in done),
             f"{arch}: not every request returned {SERVE['max_new']} tokens")
-        want = dict({"flash": 0, "scan": 0},
-                    **{kernel_key: eng.waves * n_layers})
+        want = {k: eng.waves * n for k, n in per_wave.items()}
         check(launches == want and stray == 0,
               f"{arch}: launches {launches} (others {stray}), want {want} "
-              f"for {eng.waves} prefill waves x {n_layers} layers")
+              f"for {eng.waves} prefill waves of {per_wave}")
         # bf16 prefills run on the tensor cores, never the f32 kernel
         check(by_path == {"tensor_core": want["flash"], "cuda_core": 0},
               f"{arch}: flash launches by kernel {by_path}")
         tokens = sum(len(r.out_tokens) for r in done)
         pre_s, dec_s = eng.stats["prefill_s"], eng.stats["decode_s"]
         waves = eng.waves
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-        # the card's busy share over a second, profiled run
+        # the card's busy share over a second, profiled run of n_prof
+        # requests; the device's activity alone is traced (the host's ops
+        # would add as many events as the kernels, minutes to read back for
+        # an MoE wave's ~10^5)
         eng2 = Engine(cfg, model=model, max_batch=SERVE["max_batch"],
                       max_seq=SERVE["max_seq"])
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t1 = time.perf_counter()
-            launch_serve.serve(cfg, SERVE["requests"], SERVE["max_new"],
-                               engine=eng2, seed=SEED)
+            launch_serve.serve(cfg, n_prof, SERVE["max_new"], engine=eng2,
+                               seed=SEED)
             torch.cuda.synchronize()
             prof_wall = (time.perf_counter() - t1) * 1e3
-        busy = device_busy_ms(torch, prof)
-        kern = sum(a.self_device_time_total for a in prof.key_averages()
-                   if kernel_name in a.key) / 1e3
+        evs = device_events(torch, prof)
+        busy = sum(e.self_device_time_total for e in evs) / 1e3
+        kern = sum(e.self_device_time_total for e in evs
+                   if kernel_name and kernel_name in e.name) / 1e3
+        by_name = {}
+        for e in evs:
+            ms, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.self_device_time_total / 1e3, n + 1)
+        top = sorted(((ms, n, name) for name, (ms, n) in by_name.items()),
+                     reverse=True)
+        n_evs = len(evs)
+        del prof, evs
 
         # at full width: prefill(T-k) + k decode steps against the forward.
-        # In bf16 over 64 random layers, two forwards of the same tokens in
-        # matmuls of another shape already differ by more than the bf16
+        # In bf16 over many random layers, two forwards of the same tokens
+        # in matmuls of another shape already differ by more than the bf16
         # tolerances (forward_short_vs_long), so the check is asserted on
-        # the same model in f32, where only the paths' sum orders differ
+        # the same weights in f32, where only the paths' sum orders differ;
+        # an MoE's f32 check is cut in depth and made drop-free (f32_cut)
         toks = torch.randint(0, cfg.vocab_size, (2, 32), device=DEVICE,
                              generator=torch.Generator(device=DEVICE)
                              .manual_seed(SEED + 9))
         bf16_errs = consistency(torch, model, toks, check_tol=False)
         del model, eng, eng2
         torch.cuda.empty_cache()
-        model = LM(cfg, dtype=torch.float32, device=DEVICE, seed=SEED)
+        f32_cfg, cut_dtype = cfg, torch.bfloat16
+        if f32_cut:
+            f32_cfg = cfg.with_(n_layers=f32_cut[0], moe=dataclasses.replace(
+                cfg.moe, capacity_factor=f32_cut[1]))
+            cut_dtype = torch.float32
+        t1 = time.perf_counter()
+        model = LM(f32_cfg, dtype=torch.float32, device=DEVICE, seed=SEED)
         f32_errs = consistency(torch, model, toks, check_tol=True)
+        check_s = time.perf_counter() - t1
         del model
         torch.cuda.empty_cache()
 
         # a 2-layer cut at full width: plain versions on the CPU against the
-        # kernels on the card, from the same weights
-        cut = cfg.with_(n_layers=2)
-        on_card = LM(cut, device=DEVICE, seed=SEED + 1)
-        on_cpu = LM(cut, device="cpu", params=on_card.params("cpu"))
+        # kernels on the card, from the same weights (an MoE's in f32 and
+        # drop-free, where a bf16 rounding apart cannot flip its routing)
+        cut = f32_cfg.with_(n_layers=2)
+        on_card = LM(cut, dtype=cut_dtype, device=DEVICE, seed=SEED + 1)
+        on_cpu = LM(cut, dtype=cut_dtype, device="cpu",
+                    params=on_card.params("cpu"))
         lg_card, _ = on_card.prefill(toks, on_card.init_cache(2, 64))
         lg_cpu, _ = on_cpu.prefill(toks.cpu(), on_cpu.init_cache(2, 64))
         err_cut = allclose(torch, lg_card, lg_cpu, PREFILL_TOL,
@@ -1384,28 +1461,35 @@ def phase_serve(torch, get_config, LM, launch_serve, Engine, flash, scan,
         torch.cuda.empty_cache()
 
         out[arch] = {
-            "layers": n_layers, "init_s": init_s, "requests": len(done),
-            "tokens": tokens, "waves": waves, "launches": launches,
-            "flash_launches_by_path": by_path,
+            "layers": n_layers, "params": n_params, "init_s": init_s,
+            "requests": len(done), "tokens": tokens, "waves": waves,
+            "launches": launches, "flash_launches_by_path": by_path,
             "wall_s": wall, "tokens_per_s": tokens / wall,
             "prefill_ms_per_wave": [x * 1e3 for x in pre_s],
             "decode_ms_per_step": sum(dec_s) * 1e3 / len(dec_s),
             "decode_ms_per_token": sum(dec_s) * 1e3 / (tokens - len(done)),
+            "peak_memory_gb": peak_gb, "profiled_requests": n_prof,
             "profiled_wall_ms": prof_wall, "device_busy_ms": busy,
-            "device_busy_share": busy / prof_wall,
+            "device_busy_share": busy / prof_wall, "device_launches": n_evs,
             "kernel_ms": kern, "kernel_share_of_busy": kern / busy if busy
             else None,
+            "top_device_ops_ms_count": [[ms, n, k[:80]] for ms, n, k in
+                                        top[:10]],
             "consistency_max_err": {"f32": f32_errs, "bf16": bf16_errs},
-            "cut_2_layers_cpu_vs_card_max_err": err_cut}
-        log(f"[9] serve {arch}: " + json.dumps(out[arch]))
+            "f32_check_layers": f32_cfg.n_layers, "f32_check_s": check_s,
+            "cut_2_layers_cpu_vs_card_max_err": err_cut,
+            "cut_2_layers_dtype": str(cut_dtype)[6:]}
+        log(f"[{label}] serve {arch}: " + json.dumps(out[arch]))
     return out
 
 
 # ------------------------------------------------------------ training (4th)
-# (label, B, T, H, Hkv, hd): smollm-135m's training batch, and one 2048-token
-# sequence at qwen3-14b's heads
+# (label, B, T, H, Hkv, hd): smollm-135m's training batch, one 2048-token
+# sequence at qwen3-14b's heads, and qwen3-moe-30b-a3b's training batch
+# (phase 13: a GQA group of 8 at hd 128)
 TRAIN_ATTN_CASES = [("smollm_train", 8, 1024, 9, 3, 64),
-                    ("qwen3_14b_train", 1, 2048, 40, 8, 128)]
+                    ("qwen3_14b_train", 1, 2048, 40, 8, 128),
+                    ("qwen3_moe_train", 4, 1024, 32, 4, 128)]
 # falcon-mamba-7b's width: (B, T, D, N)
 TRAIN_SCAN_CASE = ("falcon_mamba_train", 2, 512, 8192, 16)
 # the Functions' gradients against the all-eager computation's: the largest
@@ -1799,6 +1883,246 @@ def phase_train(torch, get_config, LM, Engine, launch_serve, loop, adamw,
     return {"smollm-135m": out, "falcon-mamba-7b": mamba}
 
 
+# ------------------------------------------------------- the CLI (host only)
+# the JAX package's `python -m repro.scenarios.run --scenario paper-2022` at
+# BENCH_scenarios.json's engine_comparison shape (n=48, scale 1.0, seed 0);
+# this script cannot import it
+CLI_ARGS = ["--scenario", "paper-2022", "--datasets", "48", "--scale", "1.0",
+            "--seed", "0"]
+CLI_WANT = {"iterations": 474, "duration_days": 105.613, "faults_total": 703}
+CLI_KILL_AFTER = 200
+CLI_SWEEP = ["--scenarios", "paper-2022,fault-storm", "--seeds", "0,1",
+             "--datasets", "40", "--scale", "0.02", "--processes", "2"]
+
+
+def phase_cli(cli, sweep, report) -> dict:
+    """The replication CLI as an operator runs it: the paper's campaign to
+    the reference's numbers, killed at an iteration and resumed to the same
+    trajectory, its flight recorder rendered by the post-mortem report, and
+    a two-scenario sweep; each run's report goes to a file, not stdout."""
+    import contextlib
+    import io
+    tmp = tempfile.mkdtemp(prefix="repro_torch_cli_")
+    walls = {}
+
+    def run(label, argv, want_rc=0):
+        path = os.path.join(tmp, f"{label}.json")
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main(argv + ["--json", path])
+        walls[label] = time.perf_counter() - t
+        check(rc == want_rc, f"cli {label}: exit {rc}, want {want_rc}")
+        with open(path) as f:
+            return json.load(f)
+
+    try:
+        whole = run("paper_2022", CLI_ARGS)
+        traj = whole["trajectory"]
+        got = {"iterations": traj["iterations"],
+               "duration_days": whole["duration_days"],
+               "faults_total": whole["faults_total"]}
+        check(got == CLI_WANT, f"cli paper-2022 {got} != {CLI_WANT}")
+        ck = os.path.join(tmp, "ck")
+        killed = run("kill", CLI_ARGS + ["--kill-after", str(CLI_KILL_AFTER),
+                                         "--checkpoint-dir", ck],
+                     want_rc=cli.EXIT_KILLED)
+        check(killed["killed"] and killed["iterations"] == CLI_KILL_AFTER
+              and killed["resume_with"].startswith(
+                  "python -m repro_torch.scenarios.run --resume"),
+              f"cli kill: {killed}")
+        resumed = run("resume", ["--resume", ck])
+        check(resumed["trajectory"] == traj,
+              "cli resume ended on another trajectory: "
+              f"{resumed['trajectory']} != {traj}")
+        stream = os.path.join(tmp, "run.ndjson")
+        observed = run("obs", CLI_ARGS + ["--obs", stream])
+        check(observed["trajectory"] == traj,
+              "cli --obs changed the trajectory")
+        t = time.perf_counter()
+        text = report.render(report.load_stream(stream))
+        walls["report"] = time.perf_counter() - t
+        check("records:" in text and "paper-2022" in text,
+              "the obs report is empty")
+        out = os.path.join(tmp, "sweep.json")
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            sweep.main(CLI_SWEEP + ["--out", out])
+        walls["sweep"] = time.perf_counter() - t
+        with open(out) as f:
+            rows = json.load(f)["sweep"]
+        check(len(rows) == 4 and all(r["complete"] or r["quarantined"]
+                                     for r in rows),
+              f"sweep rows: {[r['variant'] for r in rows]}")
+        res = {"trajectory": traj, **got, "killed_at": killed["iterations"],
+               "resumed_digest_equal": True,
+               "report_lines": len(text.splitlines()),
+               "sweep_variants": [r["variant"] for r in rows],
+               "sweep_duration_days": [r["duration_days"] for r in rows],
+               "wall_s": walls}
+        log("[11] cli: " + json.dumps(res))
+        return res
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# --------------------------------------------------------- MoE training
+# full width, cut in depth to what bf16 params, their bf16 gradients and f32
+# AdamW state (master, m, v: 12 bytes a parameter) leave room for
+MOE_TRAIN_LAYERS = {"qwen3-moe-30b-a3b": 4, "deepseek-v2-lite-16b": 4}
+MOE_TRAIN = dict(steps=3, batch_size=4, seq_len=1024, peak_lr=1e-3, warmup=1,
+                 remat=True, log_every=1)
+MOE_TRAIN_CUTS = ("qwen3-moe-30b-a3b layers 48 -> 4 (3.1 G parameters: bf16 "
+                  "params and grads and f32 AdamW state ~56 GB; 48 layers "
+                  "need ~490 GB); deepseek-v2-lite-16b layers 27 -> 4, the "
+                  "dense lead layer and 3 MoE layers (2.25 G parameters, "
+                  "~41 GB; its one checkpoint, params and AdamW state, is "
+                  "~32 GB on disk)")
+
+
+def phase_train_moe(torch, get_config, LM, loop, adamw, kernels, flash,
+                    checksum, chunk_bytes: int) -> dict:
+    """MoE training through ``train.loop.train``: qwen3-moe-30b-a3b (B3 in
+    every forward, twice with remat) and deepseek-v2-lite-16b (MLA, eager;
+    one checkpoint hashed by B1, restored and held to the state in
+    memory), each at full width and cut in depth, every count set to 0 just
+    before each run and read just after."""
+    from repro_torch.tree import leaves, unflatten
+    log(f"[13] reduced: {MOE_TRAIN_CUTS}")
+    out = {}
+    tokens_per_step = MOE_TRAIN["batch_size"] * MOE_TRAIN["seq_len"]
+    for arch, n_layers in MOE_TRAIN_LAYERS.items():
+        cfg = get_config(arch).with_(n_layers=n_layers)
+        ckpt = arch.startswith("deepseek")
+        tmp = train_dir(40 * GiB) if ckpt else None
+        saved = {}
+        save = loop.save_checkpoint
+
+        def kept_save(*args, **kw):
+            t = time.perf_counter()
+            d = save(*args, **kw)
+            saved.update(tree=args[2], dir=d, save_s=time.perf_counter() - t)
+            return d
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tc = loop.TrainConfig(device=DEVICE, seed=SEED,
+                              ckpt_dir=tmp and os.path.join(tmp, "ckpts"),
+                              ckpt_every=MOE_TRAIN["steps"], **MOE_TRAIN)
+        try:
+            loop.save_checkpoint = kept_save
+            for k in kernels:
+                k.launches = 0                               # path starts
+            flash.launches_by_path.update(tensor_core=0, cuda_core=0)
+            t0 = time.perf_counter()
+            res = loop.train(cfg, tc)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k.__name__.rsplit(".", 1)[-1]: k.launches
+                        for k in kernels}
+            by_path = dict(flash.launches_by_path)           # path ends
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            check(len(res.losses) == MOE_TRAIN["steps"] and all(
+                x == x and abs(x) < float("inf") for x in res.losses + res.aux)
+                and all(a > 0 for a in res.aux),
+                f"{arch}: losses {res.losses}, aux {res.aux}")
+            remat = 1 + int(MOE_TRAIN["remat"])
+            want_flash = 0 if cfg.mla else n_layers * MOE_TRAIN["steps"] * remat
+            entry = {"config": f"{arch} at d {cfg.d_model}, {n_layers} of "
+                               f"{get_config(arch).n_layers} layers, bf16, "
+                               f"AdamW", **MOE_TRAIN,
+                     "losses": res.losses, "aux": res.aux,
+                     "launches": launches, "flash_launches_by_path": by_path,
+                     "wall_s": wall, "loop_wall_s": res.wall_s,
+                     "peak_memory_gb": peak_gb}
+            want_hash = 0
+            if ckpt:
+                loop.save_checkpoint = save
+                d = saved["dir"]
+                per = ckpt_hash_launches(d, chunk_bytes)
+                want_hash = per["scan"]
+                checksum.launches = 0
+                t = time.perf_counter()
+                got = loop.restore_checkpoint(tc.ckpt_dir, saved["tree"],
+                                              device=DEVICE)
+                restore_s = time.perf_counter() - t
+                check(got is not None and got[0] == MOE_TRAIN["steps"],
+                      f"{arch}: no checkpoint restored")
+                tree = got[1]
+                for a, b in zip(leaves(tree), leaves(saved["tree"])):
+                    check(a.dtype == b.dtype and torch.equal(a, b),
+                          f"{arch}: the restored checkpoint differs from "
+                          f"the state in memory")
+                routers = [b["moe"]["router"] for part in (
+                    tree["opt"].master, tree["opt"].m, tree["opt"].v)
+                    for b in part["blocks"]]
+                check(len(routers) == 3 * (n_layers - 1) and all(
+                    r.dtype == torch.float32 for r in routers),
+                    f"{arch}: the router's AdamW state is not f32")
+                check(isinstance(tree["params"]["lead"], list)
+                      and len(tree["params"]["lead"]) == 1,
+                      f"{arch}: the lead blocks did not restore as a list")
+                check(checksum.launches == per["scan"],
+                      f"{arch}: restore hashed {checksum.launches}, want "
+                      f"{per['scan']}")
+                entry.update(checkpoint_bytes=per["bytes"],
+                             save_s=saved["save_s"], restore_s=restore_s,
+                             save_gb_per_s=per["bytes"] / saved["save_s"] / 1e9,
+                             restore_gb_per_s=per["bytes"] / restore_s / 1e9,
+                             restored_equal=True, router_state_f32=True)
+                del tree, got
+            want = {"checksum": want_hash, "lane_step": 0, "mamba_scan": 0,
+                    "flash_attention": want_flash}
+            check(launches == want,
+                  f"{arch}: training launches {launches}, want {want}")
+            check(by_path == {"tensor_core": want_flash, "cuda_core": 0},
+                  f"{arch}: flash launches by kernel {by_path}")
+        finally:
+            loop.save_checkpoint = save
+            saved.clear()
+            if tmp:
+                shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+        # a steady-state step of a fresh model, then its halves apart
+        torch.cuda.reset_peak_memory_stats()
+        model = LM(cfg, device=DEVICE, seed=SEED, remat=True)
+        model.requires_grad_(True)
+        state = adamw.init(model.params())
+        step_fn = loop.make_train_step(model, adamw.AdamWConfig(), tc)
+        data = loop.for_model(cfg, MOE_TRAIN["batch_size"],
+                              MOE_TRAIN["seq_len"], SEED)
+        batch = {k: torch.from_numpy(v).to(DEVICE)
+                 for k, v in data.batch_at(0).items()}
+
+        def one_step():
+            nonlocal state
+            _, state, loss, _ = step_fn(state, batch)
+            return loss
+
+        step_ms = host_ms(torch, one_step, 2, warmup=1)
+        params = model.parameter_tree()
+
+        def fwd_bwd():
+            loss, _ = model.loss_fn(batch)
+            return torch.autograd.grad(loss, leaves(params))
+
+        fwd_bwd_ms = host_ms(torch, fwd_bwd, 1, warmup=0)
+        grads = unflatten(params, list(fwd_bwd()))
+        lr = torch.tensor(MOE_TRAIN["peak_lr"], device=DEVICE)
+        update_ms = host_ms(torch, lambda: adamw.update(grads, state, lr), 1,
+                            warmup=0)
+        entry.update(step_ms=step_ms,
+                     tokens_per_s=tokens_per_step / step_ms * 1e3,
+                     fwd_bwd_ms=fwd_bwd_ms, adamw_update_ms=update_ms,
+                     steady_peak_memory_gb=torch.cuda.max_memory_allocated()
+                     / 1e9)
+        del model, state, step_fn, batch, grads, params
+        torch.cuda.empty_cache()
+        out[arch] = entry
+        log(f"[13] train {arch}: " + json.dumps(entry))
+    return out
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1828,8 +2152,11 @@ def main() -> None:
     from repro_torch.kernels.mamba_scan import ref as scan_ref
     from repro_torch.launch import serve as launch_serve
     from repro_torch.models.model import LM
+    from repro_torch.obs import report
     from repro_torch.optim import adamw
     from repro_torch.scenarios import registry
+    from repro_torch.scenarios import run as cli
+    from repro_torch.scenarios import sweep
     from repro_torch.serve.engine import Engine
     from repro_torch.train import loop
 
@@ -1887,6 +2214,26 @@ def main() -> None:
     flash_entry["training_grads"] = {k: v for k, v in grads.items()
                                      if k != TRAIN_SCAN_CASE[0]}
     scan_entry["training_grads"] = grads[TRAIN_SCAN_CASE[0]]
+    kernels = (kernel, lane_kernel, flash, scan)
+    for k in kernels:
+        k.launches = 0                                       # path starts
+    timed(11, phase_cli, cli, sweep, report)
+    check(all(k.launches == 0 for k in kernels),
+          "the host-only CLI launched a kernel")                # path ends
+    log(f"[12] reduced: {MOE_CUTS}")
+    moe_served = timed(12, phase_serve, torch, get_config, LM, launch_serve,
+                       Engine, flash, scan, (kernel, lane_kernel),
+                       MOE_SERVE_ARCHS, 12)
+    moe_trained = timed(13, phase_train_moe, torch, get_config, LM, loop,
+                        adamw, kernels, flash, kernel, _CHUNK_BYTES)
+    # the MoE paths' launches: B3 in qwen3-moe's prefills and training
+    # forwards, B1 over deepseek-v2-lite's checkpoint
+    flash_entry["launches_moe_serve"] = {
+        a: r["launches"]["flash"] for a, r in moe_served.items()}
+    flash_entry["launches_moe_training"] = {
+        a: r["launches"]["flash_attention"] for a, r in moe_trained.items()}
+    entry["launches_moe_training"] = {
+        a: r["launches"]["checksum"] for a, r in moe_trained.items()}
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "repro"))
     check(not leaked, f"JAX-side modules were imported: {leaked}")

@@ -10,6 +10,9 @@ The flags are the JAX package's launcher's, plus ``--device`` (default
 versions).  It drives the fault-tolerant loop on one device.
 ``--replicate-to`` turns on cross-site checkpoint replication via the
 paper's scheduler (sites are sibling directories of the checkpoint root).
+``--arch`` takes the ported patterns: the dense GQA models, the MoE models
+(``qwen3-moe-30b-a3b``, ``deepseek-v2-lite-16b`` with MLA) and Mamba1; the
+loop logs the MoE load-balancing loss (``aux``) beside the loss.
 """
 from __future__ import annotations
 
@@ -65,6 +68,7 @@ def main(argv=None) -> int:
     print(f"done: arch={cfg.name} steps={res.final_step} "
           f"restarts={res.restarts} "
           f"loss {res.losses[0]:.4f}->{res.losses[-1]:.4f} "
+          f"aux {res.aux[0]:.4f}->{res.aux[-1]:.4f} "
           f"wall={res.wall_s:.1f}s")
     return 0
 

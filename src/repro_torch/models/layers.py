@@ -1,6 +1,6 @@
-"""Core transformer layers: RMSNorm, RoPE, GQA attention, gated MLP.
+"""Core transformer layers: RMSNorm, RoPE, GQA and MLA attention, gated MLP.
 
-A port of the JAX package's ``models/layers.py`` for the dense GQA family.
+A port of the JAX package's ``models/layers.py``.
 Conventions are the reference's:
 
 * Functions take their parameters as a mapping of tensors (``p["wq"]``),
@@ -18,8 +18,14 @@ the keys are those same T tokens (the forward, and a prefill into a cache
 from position 0), ``sdpa`` goes to the flash-attention op (B3): the CUDA
 kernel for tensors on the card, its plain version on the CPU.  Everything
 else (decode, with a ``valid`` mask and cache offsets) is plain PyTorch, as
-it is jnp outside any kernel in the reference.  MLA, M-RoPE and ring-buffer
-caches for windowed layers are not ported yet (ROADMAP Queue A, step 7).
+it is jnp outside any kernel in the reference.
+
+Multi-head Latent Attention (``mla_attention``, DeepSeek-V2) is plain
+PyTorch throughout, as the reference computes it outside any kernel: its
+q.k head dim (nope + rope, 192 for deepseek-v2-lite) is not its v head dim
+(128), which the flash-attention kernel does not take.  M-RoPE and
+ring-buffer caches for windowed layers are not ported yet (ROADMAP Queue A,
+step 7).
 """
 from __future__ import annotations
 
@@ -30,7 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import MLAConfig, ModelConfig
 
 Params = Mapping[str, torch.Tensor]
 NEG_INF = -1e30
@@ -193,6 +199,84 @@ def attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
         out = sdpa(q, cache.k, cache.v, positions, k_pos, window,
                    valid=valid)
     return out.reshape(B, T, H * hd) @ p["wo"], cache
+
+
+# --------------------------------------------------------------------------- MLA
+def init_mla(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
+    m: MLAConfig = cfg.mla
+    d, H = cfg.d_model, cfg.n_heads
+    qk_hd = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "wq": _dense_init(gen, (d, H * qk_hd), dtype),
+        "w_dkv": _dense_init(gen, (d, m.kv_lora_rank), dtype),
+        "w_krope": _dense_init(gen, (d, m.qk_rope_head_dim), dtype),
+        "kv_norm": init_rmsnorm(m.kv_lora_rank, dtype, gen.device),
+        "w_uk": _dense_init(gen, (m.kv_lora_rank, H * m.qk_nope_head_dim),
+                            dtype),
+        "w_uv": _dense_init(gen, (m.kv_lora_rank, H * m.v_head_dim), dtype),
+        "wo": _dense_init(gen, (H * m.v_head_dim, d), dtype),
+    }
+
+
+class MLACache(NamedTuple):
+    c_kv: torch.Tensor    # (B, S, kv_lora_rank): the compressed latent
+    k_rope: torch.Tensor  # (B, S, rope_dim): the rope key shared by heads
+
+
+def mla_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                  positions: torch.Tensor,
+                  cache: Optional[MLACache] = None,
+                  cache_index: Optional[int] = None,
+                  ) -> Tuple[torch.Tensor, Optional[MLACache]]:
+    """Multi-head Latent Attention (DeepSeek-V2).  The cache holds the
+    latent and the shared rope key, written in place at ``cache_index``
+    (cast to the cache's dtype) and returned; per-head K and V are expanded
+    from the cached latent, so they are the reference's bit for bit.
+
+    The reference attends over the whole cache with ``valid`` = the filled
+    slots (k_pos <= the last query position); the slots past
+    ``cache_index + T`` are exactly the ones it masks, so only the filled
+    ones are read here.  Its query chunking only bounds memory and changes
+    no value, so the whole (T, S) score matrix is formed at once."""
+    m: MLAConfig = cfg.mla
+    B, T, _ = x.shape
+    H = cfg.n_heads
+    nope, rope_d, vd = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+
+    q = (x @ p["wq"]).reshape(B, T, H, nope + rope_d)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    c_kv = rmsnorm(p["kv_norm"], x @ p["w_dkv"], cfg.norm_eps)    # (B,T,r)
+    k_rope = apply_rope((x @ p["w_krope"])[:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0, :]                # (B,T,rd)
+
+    if cache is not None:
+        end = cache_index + T
+        cache.c_kv[:, cache_index:end] = c_kv.to(cache.c_kv.dtype)
+        cache.k_rope[:, cache_index:end] = k_rope.to(cache.k_rope.dtype)
+        c_kv, k_rope = cache.c_kv[:, :end], cache.k_rope[:, :end]
+        S = end
+        k_pos = torch.arange(S, device=x.device)[None].expand(B, S)
+        mask = (causal_mask(positions, k_pos)
+                & (k_pos <= positions[:, -1:])[:, None, :])
+    else:
+        S = T
+        mask = causal_mask(positions, positions)
+
+    # expand the latent to per-head K (the nope part) and V; a bf16 cache
+    # under f32 weights is promoted to f32, as jnp promotes it
+    c_kv = c_kv.to(torch.promote_types(c_kv.dtype, p["w_uk"].dtype))
+    k_nope = (c_kv @ p["w_uk"]).reshape(B, S, H, nope)
+    vv = (c_kv @ p["w_uv"]).reshape(B, S, H, vd)
+    scale = (nope + rope_d) ** -0.5
+    lg = torch.einsum("bthn,bshn->bhts", q_nope.float(), k_nope.float())
+    lg = lg + torch.einsum("bthr,bsr->bhts", q_rope.float(), k_rope.float())
+    lg = torch.where(mask[:, None], lg * scale,
+                     torch.full((), NEG_INF, device=x.device))
+    w = torch.softmax(lg, dim=-1)
+    out = torch.einsum("bhts,bshv->bthv", w, vv.float())
+    y = out.reshape(B, T, H * vd).to(x.dtype) @ p["wo"]
+    return y, cache
 
 
 # --------------------------------------------------------------------------- mlp

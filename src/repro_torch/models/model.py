@@ -1,32 +1,36 @@
-"""Decoder LM for serving: init, forward, prefill, decode.
+"""Decoder LM: init, forward, loss, prefill, decode.
 
-A port of the JAX package's ``models/model.py`` for two of its layer
+A port of the JAX package's ``models/model.py`` for three of its layer
 patterns (``derive_pattern``):
 
 * ``uniform_attn`` with plain GQA attention (smollm-135m, qwen3-14b with
   qk-norm, starcoder2-15b);
+* ``moe``: ``n_lead`` dense blocks (FFN width ``d_ff_dense``), then blocks
+  whose FFN is a mixture of experts, with GQA attention (qwen3-moe-30b-a3b)
+  or Multi-head Latent Attention (deepseek-v2-lite-16b);
 * ``ssm`` with Mamba1 layers (falcon-mamba-7b).
 
 Every other pattern or option raises ``NotImplementedError`` naming the
 ROADMAP item that ports it.  The reference scans over stacked parameter
 banks to keep its compiled graph small; here each layer is an ``nn.Module``
 in an ``nn.ModuleList``, run in a Python loop, and a layer's parameters are
-the reference's, unstacked, in its ``(in, out)`` layout.  Parameters start
-frozen (``requires_grad=False``), and serving runs under ``no_grad``.  A
-trainer calls ``requires_grad_()`` and differentiates ``loss_fn``: the
-kernels' ops then go through their ``autograd.Function``s, whose backward
-is eager PyTorch.  ``load_params`` writes a parameter tree into the model
-(the optimizer's new bf16 params, a restored checkpoint), leaf dtypes
-included.  ``remat`` recomputes each block in the backward pass
+the reference's, unstacked, in its ``(in, out)`` layout.  The lead blocks
+are a plain list in the reference too (``params["lead"]``).  Parameters
+start frozen (``requires_grad=False``), and serving runs under
+``no_grad``.  A trainer calls ``requires_grad_()`` and differentiates
+``loss_fn``: the kernels' ops then go through their ``autograd.Function``s,
+whose backward is eager PyTorch.  ``load_params`` writes a parameter tree
+into the model (the optimizer's new bf16 params, a restored checkpoint),
+leaf dtypes included.  ``remat`` recomputes each block in the backward pass
 (``torch.utils.checkpoint``), as the reference's per-layer
 ``jax.checkpoint`` does in its train mode.
 
-Caches are ``{"blocks": [per-layer state]}``.  KV caches are written in
-place (the new k and v cast to the cache's dtype); a Mamba1 layer's state is
-replaced by the new one each call, so the conv state takes the dtype its
-concatenation promotes to, as the reference's scan output does.  As in the
-reference, KV caches and conv states start as bf16 even for f32 parameters,
-and ``h`` is f32.
+Caches are ``{"blocks": [per-layer state]}``, plus ``"lead"`` for the lead
+blocks.  KV and MLA caches are written in place (the new entries cast to
+the cache's dtype); a Mamba1 layer's state is replaced by the new one each
+call, so the conv state takes the dtype its concatenation promotes to, as
+the reference's scan output does.  As in the reference, KV and MLA caches
+and conv states start as bf16 even for f32 parameters, and ``h`` is f32.
 """
 from __future__ import annotations
 
@@ -39,6 +43,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import tree as T
 from repro_torch.kernels.device import Device, require_device
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.config import ModelConfig
 
@@ -80,12 +85,9 @@ def check_ported(cfg: ModelConfig) -> Pattern:
     item (Queue A, step 7) that ports what it needs."""
     pat = derive_pattern(cfg)
     missing = []
-    if pat.kind not in ("uniform_attn", "ssm"):
-        missing.append({"moe": "MoE", "local_global":
-                        "local_global and ring caches",
+    if pat.kind not in ("uniform_attn", "moe", "ssm"):
+        missing.append({"local_global": "local_global and ring caches",
                         "hybrid": "hybrid and Mamba2"}[pat.kind])
-    if cfg.mla is not None:
-        missing.append("MLA")
     if cfg.ssm is not None and cfg.ssm.version != 1:
         missing.append("Mamba2")
     if cfg.mrope:
@@ -97,8 +99,8 @@ def check_ported(cfg: ModelConfig) -> Pattern:
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP "
-            f"Queue A, step 7); the port serves the uniform_attn (GQA) and "
-            f"ssm (Mamba1) patterns")
+            f"Queue A, step 7); the port runs the uniform_attn (GQA), moe "
+            f"(GQA or MLA attention) and ssm (Mamba1) patterns")
     return pat
 
 
@@ -136,15 +138,23 @@ class ParamTree(nn.Module):
         return out
 
 
-def init_attn_block(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
-    return {"ln1": L.init_rmsnorm(cfg.d_model, dtype, gen.device),
-            "ln2": L.init_rmsnorm(cfg.d_model, dtype, gen.device),
-            "attn": L.init_attention(gen, cfg, dtype),
-            "mlp": L.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype)}
+def init_attn_block(gen: torch.Generator, cfg: ModelConfig, dtype,
+                    use_moe: bool = False, dense_ff: int = 0) -> dict:
+    p = {"ln1": L.init_rmsnorm(cfg.d_model, dtype, gen.device),
+         "ln2": L.init_rmsnorm(cfg.d_model, dtype, gen.device),
+         "attn": (L.init_mla(gen, cfg, dtype) if cfg.mla is not None
+                  else L.init_attention(gen, cfg, dtype))}
+    if use_moe:
+        p["moe"] = MOE.init_moe(gen, cfg, dtype)
+    else:
+        p["mlp"] = L.init_mlp(gen, cfg.d_model, dense_ff or cfg.d_ff, dtype)
+    return p
 
 
 class AttnBlock(ParamTree):
-    """Pre-norm transformer block: ``ln1``, ``attn``, ``ln2``, ``mlp``."""
+    """Pre-norm transformer block: ``ln1``, ``attn`` (GQA or MLA), ``ln2``,
+    then ``mlp`` or ``moe``.  Returns (x, new cache, aux loss), the aux loss
+    None for an MLP block (the reference's 0)."""
 
     def __init__(self, cfg: ModelConfig, params: Mapping[str, Any]):
         super().__init__(params)
@@ -154,11 +164,19 @@ class AttnBlock(ParamTree):
                 window=None):
         cfg = self.cfg
         h = L.rmsnorm(self["ln1"], x, cfg.norm_eps)
-        a, new_cache = L.attention(self["attn"], cfg, h, positions, cache,
-                                   cache_index, window)
+        if cfg.mla is not None:
+            a, new_cache = L.mla_attention(self["attn"], cfg, h, positions,
+                                           cache, cache_index)
+        else:
+            a, new_cache = L.attention(self["attn"], cfg, h, positions,
+                                       cache, cache_index, window)
         x = x + a
         h = L.rmsnorm(self["ln2"], x, cfg.norm_eps)
-        return x + L.mlp(self["mlp"], h), new_cache
+        if "moe" in self._modules:
+            f, aux = MOE.moe_forward(self["moe"], cfg, h)
+        else:
+            f, aux = L.mlp(self["mlp"], h), None
+        return x + f, new_cache, aux
 
 
 def init_ssm_layer(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
@@ -199,12 +217,16 @@ class LM(nn.Module):
         self.device = require_device(device)
         if params is None:
             params = self.init(seed)
-        if len(params["blocks"]) != cfg.n_layers:
-            raise ValueError(f"{len(params['blocks'])} blocks for "
-                             f"{cfg.n_layers} layers")
+        lead = params.get("lead") or []
+        if (len(lead) != self.pattern.n_lead
+                or len(lead) + len(params["blocks"]) != cfg.n_layers):
+            raise ValueError(f"{len(lead)} lead and {len(params['blocks'])} "
+                             f"blocks for {cfg.n_layers} layers "
+                             f"({self.pattern.n_lead} lead)")
         self.io = ParamTree({k: v for k, v in params.items()
-                             if k != "blocks"})
-        block = AttnBlock if self.pattern.kind == "uniform_attn" else SSMLayer
+                             if k not in ("blocks", "lead")})
+        self.lead = nn.ModuleList(AttnBlock(cfg, p) for p in lead)
+        block = SSMLayer if self.pattern.kind == "ssm" else AttnBlock
         self.blocks = nn.ModuleList(block(cfg, p) for p in params["blocks"])
 
     # ------------------------------------------------------------------ init
@@ -212,7 +234,7 @@ class LM(nn.Module):
         """A parameter tree drawn from ``torch.Generator(device)`` seeded
         with ``seed``: the reference's shapes, dtypes and scales, not its
         numbers (``jax.random`` draws others)."""
-        cfg, dtype = self.cfg, self.dtype
+        cfg, dtype, pat = self.cfg, self.dtype, self.pattern
         gen = torch.Generator(device=self.device).manual_seed(seed)
         p: Dict[str, Any] = {
             "embed": L._dense_init(gen, (cfg.vocab_size, cfg.d_model), dtype,
@@ -221,20 +243,35 @@ class LM(nn.Module):
         if not cfg.tie_embeddings:
             p["lm_head"] = L._dense_init(gen, (cfg.d_model, cfg.vocab_size),
                                          dtype)
-        make = (init_attn_block if self.pattern.kind == "uniform_attn"
-                else init_ssm_layer)
-        p["blocks"] = [make(gen, cfg, dtype) for _ in range(cfg.n_layers)]
+        if pat.kind == "ssm":
+            p["blocks"] = [init_ssm_layer(gen, cfg, dtype)
+                           for _ in range(pat.n_scan)]
+        elif pat.kind == "moe":
+            if pat.n_lead:
+                p["lead"] = [init_attn_block(gen, cfg, dtype,
+                                             dense_ff=cfg.moe.d_ff_dense)
+                             for _ in range(pat.n_lead)]
+            p["blocks"] = [init_attn_block(gen, cfg, dtype, use_moe=True)
+                           for _ in range(pat.n_scan)]
+        else:
+            p["blocks"] = [init_attn_block(gen, cfg, dtype)
+                           for _ in range(pat.n_scan)]
         return p
+
+    def _trees(self, of) -> dict:
+        out = dict(of(self.io))
+        if self.pattern.n_lead:
+            out["lead"] = [of(b) for b in self.lead]
+        out["blocks"] = [of(b) for b in self.blocks]
+        return out
 
     def params(self, device=None) -> dict:
         """The parameter tree, as ``init`` returns it, on ``device``."""
-        return dict(self.io.tree(device),
-                    blocks=[b.tree(device) for b in self.blocks])
+        return self._trees(lambda m: m.tree(device))
 
     def parameter_tree(self) -> dict:
         """The ``nn.Parameter``s, in the tree of ``params``."""
-        return dict(self.io.parameter_tree(),
-                    blocks=[b.parameter_tree() for b in self.blocks])
+        return self._trees(lambda m: m.parameter_tree())
 
     @torch.no_grad()
     def load_params(self, params: Mapping[str, Any]) -> None:
@@ -253,14 +290,26 @@ class LM(nn.Module):
             p.data = new.to(self.device)
 
     # ----------------------------------------------------------------- cache
-    def init_cache(self, batch: int, max_seq: int) -> Cache:
+    def _attn_cache(self, batch: int, max_seq: int):
         cfg, dev = self.cfg, self.device
-        if self.pattern.kind == "uniform_attn":
-            shape = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
-            return {"blocks": [
-                L.KVCache(torch.zeros(shape, dtype=torch.bfloat16, device=dev),
-                          torch.zeros(shape, dtype=torch.bfloat16, device=dev))
-                for _ in range(cfg.n_layers)]}
+
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=torch.bfloat16, device=dev)
+        if cfg.mla is not None:
+            return L.MLACache(zeros(batch, max_seq, cfg.mla.kv_lora_rank),
+                              zeros(batch, max_seq, cfg.mla.qk_rope_head_dim))
+        shape = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+        return L.KVCache(zeros(*shape), zeros(*shape))
+
+    def init_cache(self, batch: int, max_seq: int) -> Cache:
+        cfg, dev, pat = self.cfg, self.device, self.pattern
+        if pat.kind != "ssm":
+            c = {"blocks": [self._attn_cache(batch, max_seq)
+                            for _ in range(pat.n_scan)]}
+            if pat.n_lead:
+                c["lead"] = [self._attn_cache(batch, max_seq)
+                             for _ in range(pat.n_lead)]
+            return c
         s = cfg.ssm
         d_in = s.expand * cfg.d_model
         return {"blocks": [
@@ -269,7 +318,7 @@ class LM(nn.Module):
                             device=dev),
                 torch.zeros((batch, d_in, s.d_state), dtype=torch.float32,
                             device=dev))
-            for _ in range(cfg.n_layers)]}
+            for _ in range(pat.n_scan)]}
 
     # ------------------------------------------------------------- embedding
     def embed(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -283,23 +332,38 @@ class LM(nn.Module):
     # ------------------------------------------------------------- backbone
     def backbone(self, x: torch.Tensor, positions: torch.Tensor,
                  cache: Optional[Cache] = None, t: Optional[int] = None
-                 ) -> Tuple[torch.Tensor, Optional[Cache]]:
-        """The layer stack and the final norm.  Without a cache, the forward
-        over positions arange(T); with one, serving from position ``t``."""
+                 ) -> Tuple[torch.Tensor, Optional[Cache], torch.Tensor]:
+        """The layer stack and the final norm: (x, the new cache, the sum of
+        the MoE blocks' aux losses, f32).  Without a cache, the forward over
+        positions arange(T); with one, serving from position ``t``."""
         serving = cache is not None
         remat = self.remat and not serving and torch.is_grad_enabled()
-        new_states = []
-        for i, block in enumerate(self.blocks):
-            state = cache["blocks"][i] if serving else None
-            args = ((x, positions, state, t, self.cfg.sliding_window)
-                    if self.pattern.kind == "uniform_attn" else (x, state))
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        new_cache: Cache = {}
+
+        def run(block, *args):
             if remat:
-                x, state = checkpoint(block, *args, use_reentrant=False)
-            else:
-                x, state = block(*args)
-            new_states.append(state)
+                return checkpoint(block, *args, use_reentrant=False)
+            return block(*args)
+
+        for name, stack, window in (("lead", self.lead, None),
+                                    ("blocks", self.blocks,
+                                     self.cfg.sliding_window)):
+            if not len(stack):
+                continue
+            states = []
+            for i, block in enumerate(stack):
+                state = cache[name][i] if serving else None
+                if self.pattern.kind == "ssm":
+                    x, state = run(block, x, state)
+                else:
+                    x, state, a = run(block, x, positions, state, t, window)
+                    if a is not None:
+                        aux = aux + a
+                states.append(state)
+            new_cache[name] = states
         x = L.rmsnorm(self.io["final_norm"], x, self.cfg.norm_eps)
-        return x, ({"blocks": new_states} if serving else None)
+        return x, (new_cache if serving else None), aux
 
     @torch.no_grad()
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -307,7 +371,7 @@ class LM(nn.Module):
         x = self.embed(tokens)
         B, T = x.shape[:2]
         positions = torch.arange(T, device=self.device)[None].expand(B, T)
-        x, _ = self.backbone(x, positions)
+        x, _, _ = self.backbone(x, positions)
         return self.unembed(x)
 
     # ------------------------------------------------------------------ loss
@@ -315,16 +379,15 @@ class LM(nn.Module):
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(loss, {"ce", "aux"}) of ``batch`` ({"tokens", "labels"}, (B, T)
         integers): the mean cross-entropy of the causal forward, plus
-        ``aux_weight`` times the auxiliary loss, which is 0 for both ported
-        patterns (it is MoE's).  Differentiable where grad is enabled."""
+        ``aux_weight`` times the MoE blocks' summed load-balancing loss (0
+        without MoE).  Differentiable where grad is enabled."""
         x = self.embed(torch.as_tensor(batch["tokens"]))
         B, T = x.shape[:2]
         positions = torch.arange(T, device=self.device)[None].expand(B, T)
-        x, _ = self.backbone(x, positions)
+        x, _, aux = self.backbone(x, positions)
         logits = self.unembed(x)
         labels = torch.as_tensor(batch["labels"]).to(self.device)
         ce = softmax_xent(logits, labels)
-        aux = torch.zeros((), dtype=torch.float32, device=self.device)
         loss = ce + aux_weight * aux
         return loss, {"ce": ce, "aux": aux}
 
@@ -337,7 +400,7 @@ class LM(nn.Module):
         x = self.embed(tokens)
         B, T = x.shape[:2]
         positions = torch.arange(T, device=self.device)[None].expand(B, T)
-        x, cache = self.backbone(x, positions, cache, 0)
+        x, cache, _ = self.backbone(x, positions, cache, 0)
         return self.unembed(x[:, -1:]), cache
 
     @torch.no_grad()
@@ -346,7 +409,7 @@ class LM(nn.Module):
         """token: (B, 1) at position ``t``; logits (B, 1, V)."""
         x = self.embed(token)
         positions = torch.full((x.shape[0], 1), t, device=self.device)
-        x, cache = self.backbone(x, positions, cache, t)
+        x, cache, _ = self.backbone(x, positions, cache, t)
         return self.unembed(x), cache
 
 

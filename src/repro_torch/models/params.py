@@ -4,7 +4,8 @@ The JAX package draws its weights with ``jax.random``, which the port cannot
 reproduce, so the port is held to it by loading the very same parameters.
 ``params_from_jax`` takes its parameter pytree as nested dicts of numpy
 arrays, with the per-layer banks stacked on axis 0 (``LM.init``,
-``models/model.py``), and builds the port's ``LM`` from it.  bfloat16 leaves
+``models/model.py``) and an MoE model's lead blocks in a plain list
+(``params["lead"]``), and builds the port's ``LM`` from it.  bfloat16 leaves
 must be handed over as float32 arrays (``torch.from_numpy`` does not take
 ``ml_dtypes.bfloat16``); bf16 -> f32 -> bf16 is exact.
 """
@@ -19,8 +20,9 @@ from repro_torch.kernels.device import Device, require_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import LM, check_ported
 
-# leaves the reference keeps in f32 whatever the parameters' dtype
-F32_LEAVES = ("dt_bias", "A_log", "D")
+# leaves the reference draws in f32 whatever the parameters' dtype (Mamba1's,
+# and the MoE router, ``models/moe.py``)
+F32_LEAVES = ("dt_bias", "A_log", "D", "router")
 
 
 def _tree(node: Mapping[str, Any], dtype, device) -> dict:
@@ -48,11 +50,14 @@ def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig,
     dev = require_device(device)
     blocks = tree["blocks"]
     n = len(next(iter(_leaves(blocks))))
-    if n != cfg.n_layers:
-        raise ValueError(f"the banks hold {n} layers, {cfg.name} has "
-                         f"{cfg.n_layers}")
-    params = _tree({k: v for k, v in tree.items() if k != "blocks"}, dtype,
-                   dev)
+    n_lead = len(tree.get("lead") or [])
+    if n + n_lead != cfg.n_layers:
+        raise ValueError(f"the banks hold {n} layers and the lead "
+                         f"{n_lead}, {cfg.name} has {cfg.n_layers}")
+    params = _tree({k: v for k, v in tree.items()
+                    if k not in ("blocks", "lead")}, dtype, dev)
+    if "lead" in tree:
+        params["lead"] = [_tree(b, dtype, dev) for b in tree["lead"]]
     params["blocks"] = [_tree(_layer(blocks, i), dtype, dev)
                         for i in range(n)]
     return LM(cfg, dtype=dtype, device=dev, params=params)

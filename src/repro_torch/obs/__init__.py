@@ -15,8 +15,10 @@ mid-campaign.  This package gives the simulator the same layer:
     demand hit-rate;
   * ``Observability`` (``repro_torch.obs.engine``) — the runtime wiring both onto
     a campaign, driven by ``run_world``;
-  * the JAX package's ``PhaseProfiler`` (``obs/profile.py``) and post-mortem
-    CLI (``obs/report.py``) are not ported yet.
+  * ``PhaseProfiler`` (``repro_torch.obs.profile``) — per-phase wall-time buckets
+    over the scheduler/transport/table seams;
+  * ``python -m repro_torch.obs.report`` — the post-mortem CLI: days-vs-bytes
+    curve, fault/outage timeline, slowest routes, most-retried datasets.
 
 Declared via ``ObsSpec`` on a ``ScenarioSpec``; the default ``NO_OBS``
 compiles to **zero hooks**, and the hard contract is bit-identical

@@ -6,6 +6,13 @@ moments.  The state's trees mirror the params tree (the port's per-layer
 gradients are clipped by their global norm, the bias corrections use the
 incremented step, and the new params come back as bf16 whatever the
 model's dtype, as the reference's do.
+
+``update`` writes the new master params and moments into the state's own
+tensors, one leaf at a time, and returns them in a new ``AdamWState``: the
+reference's jitted step donates its optimizer state (``donate_argnums`` in
+``train/loop.py``) for the same reason, so that the old and the new f32
+state are never held at once.  A caller must not read the old state after
+an update.
 """
 from __future__ import annotations
 
@@ -66,19 +73,17 @@ def update(grads: PyTree, state: AdamWState, lr: torch.Tensor,
 
     def upd(g, p, m, v):
         g = g.float() * scale
-        m = cfg.b1 * m + (1 - cfg.b1) * g
-        v = cfg.b2 * v + (1 - cfg.b2) * g * g
+        m.copy_(cfg.b1 * m + (1 - cfg.b1) * g)
+        v.copy_(cfg.b2 * v + (1 - cfg.b2) * g * g)
         mh = m / b1c
         vh = v / b2c
-        p = p - lr * (mh / (torch.sqrt(vh) + cfg.eps) + cfg.weight_decay * p)
-        return p, m, v
+        p.copy_(p - lr * (mh / (torch.sqrt(vh) + cfg.eps)
+                          + cfg.weight_decay * p))
+        return p.to(torch.bfloat16)
 
-    out = [upd(g, p, m, v) for g, p, m, v in zip(
+    bf16 = [upd(g, p, m, v) for g, p, m, v in zip(
         T.leaves(grads), T.leaves(state.master), T.leaves(state.m),
         T.leaves(state.v))]
-    new_p = T.unflatten(grads, [o[0] for o in out])
-    new_m = T.unflatten(grads, [o[1] for o in out])
-    new_v = T.unflatten(grads, [o[2] for o in out])
-    bf16_params = T.tree_map(lambda x: x.to(torch.bfloat16), new_p)
-    return bf16_params, AdamWState(step, new_p, new_m, new_v), {
+    return T.unflatten(grads, bf16), AdamWState(
+        step, state.master, state.m, state.v), {
         "grad_norm": gnorm, "clip_scale": scale}

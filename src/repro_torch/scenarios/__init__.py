@@ -10,8 +10,9 @@
 ``events``   — next-event time advance replacing blind fixed-step ticking:
                a 77-simulated-day campaign replays in seconds.
 ``crash_resume`` — kill-and-resume scenarios through ``Checkpointer``.
-
-The JAX package's ``sweep`` and ``run`` CLI modules are not ported yet.
+``sweep``    — multi-process parameter sweeps aggregating ``CampaignReport``s
+               into comparison frames (``BENCH_scenarios.json``).
+``run``      — ``python -m repro_torch.scenarios.run --scenario <name>`` CLI.
 """
 from repro_torch.scenarios.spec import (CatalogSpec, FaultProfileSpec, OutageSpec,
                                   RouteSpec, ScenarioSpec, SiteSpec,

@@ -15,13 +15,15 @@ Designed so that a process crash at ANY step resumes bit-compatibly:
 The reference's jitted step is a Python function here: the forward runs
 the kernels (flash attention, the selective scan), autograd runs their
 eager backward, and the new bf16 params from AdamW are written back into
-the model (``LM.load_params``).
+the model (``LM.load_params``).  The step's metrics carry the loss's
+``aux`` term (the MoE load-balancing loss, 0 without MoE) beside AdamW's,
+and the loop logs and keeps it beside the loss.
 """
 from __future__ import annotations
 
 import os
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, List, Optional
 
 import torch
@@ -62,6 +64,7 @@ class TrainResult:
     restarts: int
     restored_from: Optional[str] = None
     wall_s: float = 0.0
+    aux: List[float] = field(default_factory=list)
 
 
 def make_train_step(model: LM, opt_cfg: adamw.AdamWConfig,
@@ -69,36 +72,41 @@ def make_train_step(model: LM, opt_cfg: adamw.AdamWConfig,
     """Builds the (opt_state, batch) -> (params, opt_state, loss, metrics)
     step with microbatch gradient accumulation.  The params are the model's
     own: the step writes AdamW's new bf16 params into it and returns them
-    as a tree."""
+    as a tree.  ``metrics`` holds AdamW's and the loss's ``aux`` (the mean
+    over microbatches)."""
     mb = train_cfg.microbatches
     leaves = T.leaves(model.parameter_tree())
 
     def grads_of(batch):
-        loss, _ = model.loss_fn(batch)
-        return loss, torch.autograd.grad(loss, leaves)
+        loss, metrics = model.loss_fn(batch)
+        return loss, metrics["aux"], torch.autograd.grad(loss, leaves)
 
     def step(opt_state, batch):
         if mb == 1:
-            loss, flat = grads_of(batch)
+            loss, aux, flat = grads_of(batch)
         else:
             parts = {k: v.reshape((mb, v.shape[0] // mb) + v.shape[1:])
                      for k, v in batch.items()}
             acc = [torch.zeros(p.shape, dtype=torch.float32,
                                device=p.device) for p in leaves]
-            loss = 0.0
+            loss = aux = 0.0
             for i in range(mb):
-                l, g = grads_of({k: v[i] for k, v in parts.items()})
-                acc = [a + gi for a, gi in zip(acc, g)]
+                l, a, g = grads_of({k: v[i] for k, v in parts.items()})
+                acc = [x + gi for x, gi in zip(acc, g)]
                 loss = loss + l.detach()
-            flat = [a / mb for a in acc]
-            loss = loss / mb
+                aux = aux + a.detach()
+            flat = [x / mb for x in acc]
+            loss, aux = loss / mb, aux / mb
         grads = T.unflatten(model.parameter_tree(), list(flat))
+        del flat
         lr = warmup_cosine(opt_state.step, train_cfg.peak_lr,
                            train_cfg.warmup, train_cfg.steps)
         params, opt_state, opt_metrics = adamw.update(
             grads, opt_state, lr, opt_cfg)
+        del grads
         model.load_params(params)
-        return params, opt_state, loss.detach(), opt_metrics
+        return params, opt_state, loss.detach(), dict(
+            opt_metrics, aux=aux.detach())
 
     return step
 
@@ -113,6 +121,7 @@ def train(cfg: ModelConfig, tc: TrainConfig,
     t0 = time.time()
     dev = require_device(tc.device)
     losses: List[float] = []
+    auxes: List[float] = []
     restarts = 0
     restored_from = None
     fail_at = tc.fail_at_step
@@ -146,10 +155,12 @@ def train(cfg: ModelConfig, tc: TrainConfig,
                 if fail_at is not None and step == fail_at:
                     fail_at = None   # fail exactly once
                     raise SimulatedFailure(f"injected failure at step {step}")
-                params, opt_state, loss, _ = step_fn(opt_state, batch)
+                params, opt_state, loss, metrics = step_fn(opt_state, batch)
                 losses.append(float(loss))
+                auxes.append(float(metrics["aux"]))
                 if tc.log_every and step % tc.log_every == 0:
-                    print(f"[train] step {step} loss {float(loss):.4f}")
+                    print(f"[train] step {step} loss {losses[-1]:.4f} "
+                          f"aux {auxes[-1]:.4f}")
                 next_step = step + 1
                 if tc.ckpt_dir and next_step % tc.ckpt_every == 0:
                     d = save_checkpoint(
@@ -160,7 +171,7 @@ def train(cfg: ModelConfig, tc: TrainConfig,
                             d, tc.replicator.site_dir(tc.replicator.primary))
                         tc.replicator.replicate(rel)
             return TrainResult(losses, tc.steps, restarts, restored_from,
-                               time.time() - t0)
+                               time.time() - t0, auxes)
         except SimulatedFailure as e:
             print(f"[train] FAILURE: {e}; restarting from checkpoint")
             restarts += 1

@@ -98,17 +98,27 @@ def _spell(node) -> str:
     return "*"
 
 
+BANK = "blocks"
+
+
+def _is_bank(key, node) -> bool:
+    """The port's per-layer blocks: a list of mappings under ``BANK``.  An
+    MoE model's ``lead`` blocks are a plain list in the reference too, so
+    they are not stacked."""
+    return (key == BANK and isinstance(node, list) and bool(node)
+            and all(isinstance(x, Mapping) for x in node))
+
+
 def stack_layers(tree: Tree, stack: Callable[[List[Any]], Any]) -> Tree:
-    """``tree`` with every list of mappings (the port's per-layer blocks)
-    turned into one mapping of leaves stacked on a new axis 0 by ``stack``
-    (the JAX package's layer banks)."""
+    """``tree`` with every list of mappings under a ``"blocks"`` key (the
+    port's per-layer blocks) turned into one mapping of leaves stacked on a
+    new axis 0 by ``stack`` (the JAX package's layer banks)."""
     if isinstance(tree, Mapping):
-        return {k: stack_layers(v, stack) for k, v in tree.items()}
+        return {k: tree_map(lambda *xs: stack(list(xs)), *v)
+                if _is_bank(k, v) else stack_layers(v, stack)
+                for k, v in tree.items()}
     if _is_namedtuple(tree):
         return type(tree)(*(stack_layers(x, stack) for x in tree))
-    if isinstance(tree, list) and tree and all(isinstance(x, Mapping)
-                                                for x in tree):
-        return tree_map(lambda *xs: stack(list(xs)), *tree)
     if isinstance(tree, (list, tuple)):
         return type(tree)(stack_layers(x, stack) for x in tree)
     return tree
@@ -119,14 +129,13 @@ def unstack_layers(example: Tree, stacked: Tree) -> Tree:
     per-layer lists of ``example`` (row ``i`` of each bank is layer
     ``i``)."""
     if isinstance(example, Mapping):
-        return {k: unstack_layers(v, stacked[k]) for k, v in example.items()}
+        return {k: [tree_map(lambda s, i=i: s[i], stacked[k])
+                    for i in range(len(v))]
+                if _is_bank(k, v) else unstack_layers(v, stacked[k])
+                for k, v in example.items()}
     if _is_namedtuple(example):
         return type(example)(*(unstack_layers(x, s)
                                for x, s in zip(example, stacked)))
-    if isinstance(example, list) and example and all(
-            isinstance(x, Mapping) for x in example):
-        return [tree_map(lambda s, i=i: s[i], stacked)
-                for i in range(len(example))]
     if isinstance(example, (list, tuple)):
         return type(example)(unstack_layers(x, s)
                              for x, s in zip(example, stacked))

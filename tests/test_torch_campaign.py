@@ -192,7 +192,10 @@ def test_importing_every_port_module_loads_neither_jax_nor_repro():
               "repro_torch.optim.schedule", "repro_torch.data.synthetic",
               "repro_torch.data.sharded", "repro_torch.checkpoint.ckpt",
               "repro_torch.checkpoint.replicate", "repro_torch.train.loop",
-              "repro_torch.launch.train"):
+              "repro_torch.launch.train", "repro_torch.models.moe",
+              "repro_torch.scenarios.run", "repro_torch.scenarios.sweep",
+              "repro_torch.core.dashboard", "repro_torch.obs.report",
+              "repro_torch.obs.profile"):
         assert m in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"

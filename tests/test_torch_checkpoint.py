@@ -7,6 +7,10 @@
   bf16, f32 and int32 leaves alike, the port's per-layer blocks written as
   the reference's layer banks; each package's MANIFEST verifies under the
   other.
+* The MoE models' trees (deepseek-v2-lite-16b with MLA and a dense
+  ``lead`` block, qwen3-moe-30b-a3b): the same files from either package,
+  ``lead`` kept a plain list of blocks and the router f32, and each
+  restores the other's bit-equal.
 * Replication of a training checkpoint to POD1 and its restore after the
   primary is lost.
 * ``launch.serve --ckpt-dir``: the port serves the reference's tokens from
@@ -216,6 +220,35 @@ def test_training_state_restores_across_packages(jax_model, tmp_path):
     _, jgot, _ = jckpt.restore_checkpoint(str(tmp_path / "torch"), jt)
     for a, b in zip(jax.tree_util.tree_leaves(jt),
                     jax.tree_util.tree_leaves(jgot)):
+        np.testing.assert_array_equal(np.asarray(a, np.float32),
+                                      np.asarray(b, np.float32))
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b",
+                                  "qwen3-moe-30b-a3b"])
+def test_moe_training_state_restores_across_packages(arch, tmp_path):
+    jcfg = jget_config(arch).smoke()
+    params = jax.jit(JLM(jcfg, remat=False).init)(jax.random.PRNGKey(0))
+    jt = {"params": params, "opt": jax.jit(jadamw.init)(params)}
+    tlm = params_from_jax(
+        jax.tree_util.tree_map(lambda a: np.array(a, np.float32), params),
+        get_config(arch).smoke(), device="cpu", dtype=torch.bfloat16)
+    tt = {"params": tlm.params(), "opt": adamw.init(tlm.params())}
+    assert isinstance(tt["params"].get("lead", []), list)
+    jckpt.save_checkpoint(str(tmp_path / "jax"), 1, jt)
+    _save(tmp_path / "torch", 1, tt)
+    assert _same_files(tmp_path / "jax" / "step-000001",
+                       tmp_path / "torch" / "step-000001") == []
+    _, got, _ = _restore(tmp_path / "jax", tt)
+    assert len(got["params"].get("lead", [])) == jcfg.moe.first_dense_layers
+    assert all(b["moe"]["router"].dtype == torch.float32
+               for b in got["params"]["blocks"])
+    for a, b in zip(T.leaves(tt), T.leaves(got)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    _, jgot, _ = jckpt.restore_checkpoint(str(tmp_path / "torch"), jt)
+    for a, b in zip(jax.tree_util.tree_leaves(jt),
+                    jax.tree_util.tree_leaves(jgot)):
+        assert a.dtype == b.dtype
         np.testing.assert_array_equal(np.asarray(a, np.float32),
                                       np.asarray(b, np.float32))
 

@@ -37,8 +37,8 @@ from repro_torch.models.config import param_count
 from repro_torch.models.params import F32_LEAVES, params_from_jax
 
 PORTED = ["smollm-135m", "qwen3-14b", "falcon-mamba-7b"]
-UNPORTED = ["zamba2-1.2b", "gemma3-27b", "qwen2-vl-7b", "deepseek-v2-lite-16b",
-            "qwen3-moe-30b-a3b", "musicgen-large"]
+MOE = ["deepseek-v2-lite-16b", "qwen3-moe-30b-a3b"]     # tests/test_torch_moe.py
+UNPORTED = ["zamba2-1.2b", "gemma3-27b", "qwen2-vl-7b", "musicgen-large"]
 DTYPES = {"f32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
 B, T, K = 2, 32, 4          # batch, sequence, decode steps after the prefill
@@ -170,7 +170,7 @@ def test_registry_equals_reference():
                                                                        shape)
 
 
-@pytest.mark.parametrize("arch", PORTED + ["starcoder2-15b"])
+@pytest.mark.parametrize("arch", PORTED + ["starcoder2-15b"] + MOE)
 def test_port_init_matches_reference_shapes(arch):
     """The port's own seeded init has the reference's leaves: the same
     count per parameter, the same dtypes (bf16, with the f32 leaves kept

@@ -5,7 +5,9 @@ carried into the port (``params_from_jax``), and both engines serve the same
 seeded prompts on the CPU: the port's engine must return exactly the
 reference's tokens, for same-length prompts, for mixed lengths (left-padded
 to a 16/32/64 bucket) and for more requests than slots.  Both keep the
-reference's default bf16 KV caches.
+reference's default bf16 KV caches.  The launcher serves the smoke configs
+of smollm-135m and of both MoE models on the CPU (the MoE engines' tokens
+against the reference's are in ``tests/test_torch_moe.py``).
 """
 import os
 import subprocess
@@ -113,6 +115,15 @@ def _cli(*args):
 
 def test_cli_serves_on_the_cpu():
     out = _cli("--arch", ARCH, "--device", "cpu", "--requests", "3",
+               "--max-new", "4")
+    assert out.returncode == 0, out.stderr
+    assert "served 3 requests / 12 tokens" in out.stdout
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b",
+                                  "qwen3-moe-30b-a3b"])
+def test_cli_serves_the_moe_archs_on_the_cpu(arch):
+    out = _cli("--arch", arch, "--device", "cpu", "--requests", "3",
                "--max-new", "4")
     assert out.returncode == 0, out.stderr
     assert "served 3 requests / 12 tokens" in out.stdout

@@ -20,7 +20,9 @@ seeded with numpy:
 * the loop's loss decrease, restart, replication and gradient accumulation;
 * the data pipelines (``SyntheticTokens``, ``ShardedDataset``,
   ``IterState``) batch for batch against the reference's;
-* the ``launch.train`` CLI.
+* the ``launch.train`` CLI, also on the MoE models' smoke configs, with
+  ``aux`` logged beside the loss (their loss and gradients against the
+  reference's are in ``tests/test_torch_moe.py``).
 """
 import os
 import shutil
@@ -394,6 +396,22 @@ def test_cli_trains_and_replicates_on_the_cpu(tmp_path):
     assert "done: arch=smollm-135m-smoke steps=4 restarts=0" in out.stdout
     assert sorted(os.listdir(tmp_path / "POD1" / "ckpts")) == [
         "step-000002", "step-000004"]
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b",
+                                  "qwen3-moe-30b-a3b"])
+def test_cli_trains_the_moe_archs_and_logs_aux(arch, tmp_path):
+    """The MoE models train on the CPU through a checkpoint; the loop logs
+    the load-balancing loss beside the loss, and it is positive."""
+    out = _cli("--arch", arch, "--device", "cpu", "--steps", "2",
+               "--batch", "2", "--seq", "32", "--ckpt-dir",
+               str(tmp_path / "ck"), "--ckpt-every", "2", "--remat")
+    assert out.returncode == 0, out.stderr
+    assert f"done: arch={arch}-smoke steps=2 restarts=0" in out.stdout
+    step0 = [ln for ln in out.stdout.splitlines()
+             if ln.startswith("[train] step 0 loss ")]
+    assert len(step0) == 1 and float(step0[0].split(" aux ")[1]) > 0
+    assert sorted(os.listdir(tmp_path / "ck")) == ["step-000002"]
 
 
 def test_cli_without_device_needs_cuda():
