@@ -43,13 +43,17 @@ it fails, and each of which prints its wall time:
    card (2.5e-2 in bf16, 2e-5 in f32, ``tests/test_kernels.py``'s
    tolerances) at smollm-135m's serve shape, a ragged T, a window at
    hd 128, hd 32, qwen3-14b's serve shape, f32 (the CUDA-core kernel), one
-   train_4k sequence at qwen3-14b's heads and qwen3-moe-30b-a3b's serve
-   shape [4, 256, 32/4, 128] (a GQA group of 8), and over strided KV-cache
-   views; each bf16 case on the tensor-core kernel, with the block it
-   launched.  The kernel's time and ``scaled_dot_product_attention``'s are
-   both the profiler's device time per call (every kernel the call
-   launches), CUDA events over back-to-back calls beside them; with the
-   plain version's time and the kernel's bound.
+   train_4k sequence at qwen3-14b's heads, qwen3-moe-30b-a3b's serve shape
+   [4, 256, 32/4, 128] (a GQA group of 8), gemma3-27b's local (window 1024)
+   and global prefill of 2048-token prompts [4, 2048, 32/16, 128],
+   qwen2-vl-7b's serve shape [4, 256, 28/4, 128] (a GQA group of 7) and
+   zamba2-1.2b's and musicgen-large's [4, 256, 32/32, 64], and over strided
+   KV-cache views; each bf16 case on the tensor-core kernel, with the block
+   it launched.  The kernel's time and ``scaled_dot_product_attention``'s
+   (with an explicit boolean mask for a window) are both the profiler's
+   device time per call (every kernel the call launches, whose names give
+   SDPA's backend), CUDA events over back-to-back calls beside them; with
+   the plain version's time and the kernel's bound.
 8. Selective scan: the kernel against its plain PyTorch version on the card
    (rtol/atol 1e-4) at falcon-mamba-7b's serve shape, a ragged shape, one
    4096-token prompt and the serve shape at the model's own range of A and
@@ -74,8 +78,10 @@ it fails, and each of which prints its wall time:
    and the card's busy share.
 10. Training, the fourth main path.  (10a) The kernels' autograd
    Functions: flash attention at smollm-135m's training batch [8, 1024,
-   9/3, 64] and at qwen3-14b's heads [1, 2048, 40/8, 128] in bf16, the
-   scan at falcon-mamba-7b's width [2, 512, 8192, 16]; each forward held
+   9/3, 64], at qwen3-14b's heads [1, 2048, 40/8, 128], at qwen3-moe's
+   [4, 1024, 32/4, 128] and at gemma3-27b's windowed [2, 2048, 32/16, 128]
+   (window 1024) in bf16, the scan at falcon-mamba-7b's width [2, 512,
+   8192, 16]; each forward held
    to the plain version (phase 7's and 8's tolerances), each gradient to
    the all-eager computation's (``GRAD_REL_TOL`` of the largest).  (10)
    smollm-135m at its published width and depth, seeded bf16 weights,
@@ -952,7 +958,10 @@ ATTN_TOL = {"bfloat16": 2.5e-2, "float32": 2e-5}   # tests/test_kernels.py
 # (label, B, T, H, Hkv, hd, window, dtype); "main" is smollm-135m's serve
 # shape, "qwen3_14b_serve" qwen3-14b's, "train_4k" one sequence of
 # train_4k at qwen3-14b's heads, "qwen3_moe_serve" qwen3-moe-30b-a3b's
-# serve shape (a GQA group of 8)
+# serve shape (a GQA group of 8); gemma3-27b's local (window 1024) and
+# global prefill of a wave of 2048-token prompts, qwen2-vl-7b's serve shape
+# (a GQA group of 7) and zamba2-1.2b's and musicgen-large's (hd 64, no
+# grouping)
 FLASH_CASES = [("main", 4, 256, 9, 3, 64, None, "bfloat16"),
                ("ragged_T200", 2, 200, 9, 3, 64, None, "bfloat16"),
                ("window128_hd128", 1, 384, 2, 2, 128, 128, "bfloat16"),
@@ -960,7 +969,12 @@ FLASH_CASES = [("main", 4, 256, 9, 3, 64, None, "bfloat16"),
                ("qwen3_14b_serve", 4, 256, 40, 8, 128, None, "bfloat16"),
                ("f32_window64", 2, 256, 8, 8, 32, 64, "float32"),
                ("train_4k", 1, 4096, 40, 8, 128, None, "bfloat16"),
-               ("qwen3_moe_serve", 4, 256, 32, 4, 128, None, "bfloat16")]
+               ("qwen3_moe_serve", 4, 256, 32, 4, 128, None, "bfloat16"),
+               ("gemma3_local", 4, 2048, 32, 16, 128, 1024, "bfloat16"),
+               ("gemma3_global", 4, 2048, 32, 16, 128, None, "bfloat16"),
+               ("qwen2_vl_serve", 4, 256, 28, 4, 128, None, "bfloat16"),
+               ("zamba2_musicgen_serve", 4, 256, 32, 32, 64, None,
+                "bfloat16")]
 # the kernel each input type launches
 FLASH_KERNELS = {"bfloat16": ("tensor_core", "flash_fwd_wgmma_kernel"),
                  "float32": ("cuda_core", "flash_fwd_kernel")}
@@ -1045,11 +1059,22 @@ def phase_flash(torch, kernel, ref, card: str) -> dict:
                 blocks["x".join(map(str, shape))] = dict(
                     kernel.block_shape(hd, T, window, shape), ms=f_ms,
                     max_abs_err=f_err)
-        lib_ms = lib_events_ms = lib_names = None
-        if window is None:
+        lib_ms = lib_events_ms = lib_names = lib_err = None
+        if dname == "bfloat16":
+            # the same function in one SDPA call; a window needs an explicit
+            # boolean mask (True = attend), which rules out the flash
+            # backend: the kernels it launches name the backend it chose
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            mask = None
+            if window is not None:
+                i = torch.arange(T, device=dev)
+                d = i[:, None] - i[None, :]
+                mask = (d >= 0) & (d < window)
             sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                qt, kt, vt, is_causal=True, enable_gqa=True)
+                qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+                enable_gqa=True)
+            lib_err = (sdpa().transpose(1, 2).float() - plain.float()).abs(
+                ).max().item()
             lib_ms, lib_names = device_ms_per_call(torch, sdpa, it)
             lib_events_ms = cuda_ms(torch, sdpa, it)
         timings[label] = {
@@ -1063,6 +1088,7 @@ def phase_flash(torch, kernel, ref, card: str) -> dict:
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
             "library_events_ms_per_call": lib_events_ms,
             "library_kernels": lib_names,
+            "library_max_abs_err": lib_err,
             "block": (kernel.block_shape(hd, T, window)
                       if dname == "bfloat16" else None),
             "blocks": blocks}
@@ -1083,6 +1109,9 @@ def phase_flash(torch, kernel, ref, card: str) -> dict:
             "shape": "smollm-135m serve [B=4, T=256, H=9, Hkv=3, hd=64] bf16",
             "at_train_4k": timings["train_4k"],
             "at_qwen3_moe_serve": timings["qwen3_moe_serve"],
+            "at_families": {k: timings[k] for k in (
+                "gemma3_local", "gemma3_global", "qwen2_vl_serve",
+                "zamba2_musicgen_serve")},
             "cases": timings,
             "card": card}
 
@@ -1273,7 +1302,13 @@ def phase_scan(torch, kernel, ref, card: str) -> dict:
 # ------------------------------------------------------------ serving (3rd)
 # (arch, layers, flash and scan launches a prefill wave, the name of the
 # kernel its prefill launches, requests profiled, the f32 check's cut: its
-# layers and the MoE capacity factor, or None for the published config)
+# layers and the MoE capacity factor (None: no MoE), or None for the
+# published config; and, optionally, a mapping of options: "prompts" (the
+# least and most tokens of a prompt, in place of the launcher's),
+# "max_seq", "check_tokens" (the consistency checks' sequence, 32 by
+# default), "cut_layers" (the card-vs-CPU cut, 2 by default), "cut_f32"
+# (that cut in f32) and "mrope_prefill" (one prefill of frontend
+# embeddings with M-RoPE ids))
 SERVE_ARCHS = (("smollm-135m", 30, {"flash": 30, "scan": 0},
                 "flash_fwd_wgmma_kernel", 8, None),
                ("falcon-mamba-7b", 64, {"flash": 0, "scan": 64},
@@ -1290,6 +1325,33 @@ MOE_CUTS = (f"the f32 prefill/decode check: {MOE_CHECK[0]} layers of 48 "
             f"(qwen3-moe) and of 27 (deepseek-v2-lite), capacity_factor "
             f"1.25 -> {MOE_CHECK[1]} (no drops); the card-vs-CPU cut in f32 "
             f"at that capacity; the bf16 serving runs at full depth")
+# The last four families.  gemma3-27b's prompts are longer than its
+# 1024-token window and padded to 2048, so its local layers prefill past
+# their rings' length and decode across the wrap; its f32 check (6 layers,
+# one group: 62 in f32 are 108 GB) runs 1040 tokens, past the window.
+# zamba2-1.2b runs B3 once a group (6 calls of its shared block); its cut
+# is one group and a tail layer, the least depth that reaches the shared
+# block.  qwen2-vl-7b also prefills the frontend's embeddings with M-RoPE.
+# musicgen-large's card-vs-CPU cut runs in f32: its per-book heads are drawn
+# at 1/sqrt(4) (the reference's init scales by the first axis), so its
+# logits reach ~20, and one bf16 step apart in a hidden state moved them by
+# 1.0 between the CPU and an H100 in a bf16 cut.
+FAMILY_SERVE_ARCHS = (
+    ("gemma3-27b", 62, {"flash": 62, "scan": 0}, "flash_fwd_wgmma_kernel", 4,
+     (6, None), {"prompts": (1030, 2000), "max_seq": 2080,
+                 "check_tokens": 1040}),
+    ("zamba2-1.2b", 38, {"flash": 6, "scan": 0}, "flash_fwd_wgmma_kernel", 8,
+     None, {"cut_layers": 7}),
+    ("qwen2-vl-7b", 28, {"flash": 28, "scan": 0}, "flash_fwd_wgmma_kernel", 8,
+     None, {"mrope_prefill": True}),
+    ("musicgen-large", 48, {"flash": 48, "scan": 0},
+     "flash_fwd_wgmma_kernel", 8, None, {"cut_f32": True}))
+FAMILY_CUTS = ("gemma3-27b's f32 prefill/decode check at 6 of 62 layers (one "
+               "local/global group; 62 layers in f32 are 108 GB); the "
+               "card-vs-CPU cuts at 2 layers (gemma3: two windowed layers; "
+               "musicgen in f32), 7 (zamba2: one group, the shared block, "
+               "one tail layer); "
+               "the bf16 serving runs at full depth")
 SERVE = dict(requests=8, max_new=16, max_batch=4, max_seq=1024)
 PREFILL_TOL = dict(atol=0.12, rtol=0.05)   # tests/test_models.py, bf16
 DECODE_TOL = dict(atol=0.5, rtol=0.03)
@@ -1325,14 +1387,14 @@ def consistency(torch, model, toks, check_tol: bool) -> dict:
     same sums in matmuls of another shape).  Asserted at
     tests/test_models.py's tolerances when ``check_tol``; an f32 model's
     caches are f32."""
+    from repro_torch import tree
     T = toks.shape[1]
     Tp = T - 8
     full = model(toks).float()
     short = model(toks[:, :Tp]).float()
     cache = model.init_cache(toks.shape[0], T + 8)
     if model.dtype == torch.float32:
-        cache = {k: [type(c)(*(x.float() for x in c)) for c in v]
-                 for k, v in cache.items()}
+        cache = tree.tree_map(lambda x: x.float(), cache)
     logits, cache = model.prefill(toks[:, :Tp], cache)
     errs = {"forward_short_vs_long": (short - full[:, :Tp]).abs().max()
             .item(),
@@ -1351,17 +1413,86 @@ def consistency(torch, model, toks, check_tol: bool) -> dict:
     return errs
 
 
+MROPE_PREFILL = dict(batch=4, seq=256, decode=16)
+
+
+def mrope_prefill(torch, model, flash, n_layers: int) -> dict:
+    """One prefill of the frontend's embeddings with M-RoPE ids (an image
+    grid, then text) into a cache, then greedy decode steps from it (the
+    token table, t on all three streams, as in the reference): B3 once a
+    layer, the prefill's logits against the forward's last position, the
+    M-RoPE rotation not the plain one, finite decode logits."""
+    from repro_torch.models.frontends import train_batch_stub
+    b, seq, n_dec = (MROPE_PREFILL[k] for k in ("batch", "seq", "decode"))
+    batch = train_batch_stub(model.cfg, b, seq, seed=SEED + 11,
+                             device=DEVICE)
+    del batch["labels"]
+    check(set(batch) == {"embeds", "positions3"},
+          f"the vlm batch holds {sorted(batch)}")
+    before = flash.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(batch, model.init_cache(b, seq + n_dec))
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    check(flash.launches == before + n_layers,
+          f"the M-RoPE prefill launched {flash.launches - before} B3 "
+          f"kernels, not {n_layers}")
+    full = model(batch)
+    err = allclose(torch, logits[:, 0], full[:, -1], PREFILL_TOL,
+                   "M-RoPE prefill vs forward")
+    plain, _ = model.prefill({"embeds": batch["embeds"]},
+                             model.init_cache(b, seq))
+    rope_diff = (plain.float() - logits.float()).abs().max().item()
+    check(rope_diff > 0, "the M-RoPE prefill equals the plain-RoPE one")
+    tok = logits.argmax(-1)
+    t0 = time.perf_counter()
+    for t in range(seq, seq + n_dec):
+        lg, cache = model.decode_step(cache, tok, t)
+        tok = lg.argmax(-1)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / n_dec
+    check(bool(torch.isfinite(lg.float()).all()),
+          "M-RoPE decode logits not finite")
+    return {"batch": b, "seq": seq, "decode_steps": n_dec,
+            "launches": n_layers, "prefill_ms": prefill_ms,
+            "decode_ms_per_step": decode_ms,
+            "prefill_vs_forward_max_err": err,
+            "mrope_vs_plain_rope_max_diff": rope_diff}
+
+
 def phase_serve(torch, get_config, LM, launch_serve, Engine, flash, scan,
                 others, archs=SERVE_ARCHS, label: int = 9) -> dict:
     """Full-width serving through the engine on the card, of smollm-135m and
-    falcon-mamba-7b (phase 9) or of the MoE archs (phase 12), with every
-    count set to 0 just before each run and read just after."""
+    falcon-mamba-7b (phase 9), of the MoE archs (phase 12) or of the last
+    four families (phase 14), with every count set to 0 just before each
+    run and read just after."""
     import dataclasses
 
     from torch.profiler import ProfilerActivity, profile
     out = {}
-    for arch, n_layers, per_wave, kernel_name, n_prof, f32_cut in archs:
+    for arch, n_layers, per_wave, kernel_name, n_prof, f32_cut, *more in archs:
+        opts = more[0] if more else {}
+        max_seq = opts.get("max_seq", SERVE["max_seq"])
         cfg = get_config(arch)
+
+        def serve(eng, n):
+            """(engine, finished requests, wall s) of n seeded requests:
+            the launcher's prompts, or opts["prompts"]' lengths."""
+            if "prompts" not in opts:
+                return launch_serve.serve(cfg, n, SERVE["max_new"],
+                                          engine=eng, seed=SEED)
+            lo, hi = opts["prompts"]
+            g = torch.Generator().manual_seed(SEED)
+            t = time.perf_counter()
+            for _ in range(n):
+                plen = int(torch.randint(lo, hi + 1, (), generator=g))
+                eng.submit(torch.randint(0, cfg.vocab_size, (plen,),
+                                         generator=g).numpy(),
+                           max_new_tokens=SERVE["max_new"])
+            done = eng.run_to_completion()
+            return eng, done, time.perf_counter() - t
+
         check(cfg.n_layers == n_layers, f"{arch} has {cfg.n_layers} layers")
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -1371,13 +1502,11 @@ def phase_serve(torch, get_config, LM, launch_serve, Engine, flash, scan,
         init_s = time.perf_counter() - t0
         n_params = sum(p.numel() for p in model.parameters())
         eng = Engine(cfg, model=model, max_batch=SERVE["max_batch"],
-                     max_seq=SERVE["max_seq"])
+                     max_seq=max_seq)
         for k in (flash, scan, *others):
             k.launches = 0                                   # path starts
         flash.launches_by_path.update(tensor_core=0, cuda_core=0)
-        eng, done, wall = launch_serve.serve(cfg, SERVE["requests"],
-                                             SERVE["max_new"], engine=eng,
-                                             seed=SEED)
+        eng, done, wall = serve(eng, SERVE["requests"])
         torch.cuda.synchronize()
         launches = {"flash": flash.launches, "scan": scan.launches}
         by_path = dict(flash.launches_by_path)
@@ -1402,11 +1531,10 @@ def phase_serve(torch, get_config, LM, launch_serve, Engine, flash, scan,
         # would add as many events as the kernels, minutes to read back for
         # an MoE wave's ~10^5)
         eng2 = Engine(cfg, model=model, max_batch=SERVE["max_batch"],
-                      max_seq=SERVE["max_seq"])
+                      max_seq=max_seq)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t1 = time.perf_counter()
-            launch_serve.serve(cfg, n_prof, SERVE["max_new"], engine=eng2,
-                               seed=SEED)
+            serve(eng2, n_prof)
             torch.cuda.synchronize()
             prof_wall = (time.perf_counter() - t1) * 1e3
         evs = device_events(torch, prof)
@@ -1428,16 +1556,25 @@ def phase_serve(torch, get_config, LM, launch_serve, Engine, flash, scan,
         # tolerances (forward_short_vs_long), so the check is asserted on
         # the same weights in f32, where only the paths' sum orders differ;
         # an MoE's f32 check is cut in depth and made drop-free (f32_cut)
-        toks = torch.randint(0, cfg.vocab_size, (2, 32), device=DEVICE,
+        book = (cfg.n_codebooks,) if cfg.n_codebooks > 1 else ()
+        toks = torch.randint(0, cfg.vocab_size,
+                             (2, opts.get("check_tokens", 32), *book),
+                             device=DEVICE,
                              generator=torch.Generator(device=DEVICE)
                              .manual_seed(SEED + 9))
         bf16_errs = consistency(torch, model, toks, check_tol=False)
+        mrope = (mrope_prefill(torch, model, flash, n_layers)
+                 if opts.get("mrope_prefill") else None)
         del model, eng, eng2
         torch.cuda.empty_cache()
         f32_cfg, cut_dtype = cfg, torch.bfloat16
         if f32_cut:
-            f32_cfg = cfg.with_(n_layers=f32_cut[0], moe=dataclasses.replace(
-                cfg.moe, capacity_factor=f32_cut[1]))
+            f32_cfg = cfg.with_(n_layers=f32_cut[0])
+            if f32_cut[1] is not None:
+                f32_cfg = f32_cfg.with_(moe=dataclasses.replace(
+                    cfg.moe, capacity_factor=f32_cut[1]))
+                cut_dtype = torch.float32
+        if opts.get("cut_f32"):
             cut_dtype = torch.float32
         t1 = time.perf_counter()
         model = LM(f32_cfg, dtype=torch.float32, device=DEVICE, seed=SEED)
@@ -1449,7 +1586,7 @@ def phase_serve(torch, get_config, LM, launch_serve, Engine, flash, scan,
         # a 2-layer cut at full width: plain versions on the CPU against the
         # kernels on the card, from the same weights (an MoE's in f32 and
         # drop-free, where a bf16 rounding apart cannot flip its routing)
-        cut = f32_cfg.with_(n_layers=2)
+        cut = f32_cfg.with_(n_layers=opts.get("cut_layers", 2))
         on_card = LM(cut, dtype=cut_dtype, device=DEVICE, seed=SEED + 1)
         on_cpu = LM(cut, dtype=cut_dtype, device="cpu",
                     params=on_card.params("cpu"))
@@ -1477,19 +1614,25 @@ def phase_serve(torch, get_config, LM, launch_serve, Engine, flash, scan,
                                         top[:10]],
             "consistency_max_err": {"f32": f32_errs, "bf16": bf16_errs},
             "f32_check_layers": f32_cfg.n_layers, "f32_check_s": check_s,
+            "cut_layers": cut.n_layers,
             "cut_2_layers_cpu_vs_card_max_err": err_cut,
-            "cut_2_layers_dtype": str(cut_dtype)[6:]}
+            "cut_2_layers_dtype": str(cut_dtype)[6:],
+            "check_tokens": toks.shape[1], "max_seq": max_seq}
+        if mrope is not None:
+            out[arch]["mrope_prefill"] = mrope
         log(f"[{label}] serve {arch}: " + json.dumps(out[arch]))
     return out
 
 
 # ------------------------------------------------------------ training (4th)
-# (label, B, T, H, Hkv, hd): smollm-135m's training batch, one 2048-token
-# sequence at qwen3-14b's heads, and qwen3-moe-30b-a3b's training batch
-# (phase 13: a GQA group of 8 at hd 128)
-TRAIN_ATTN_CASES = [("smollm_train", 8, 1024, 9, 3, 64),
-                    ("qwen3_14b_train", 1, 2048, 40, 8, 128),
-                    ("qwen3_moe_train", 4, 1024, 32, 4, 128)]
+# (label, B, T, H, Hkv, hd, window): smollm-135m's training batch, one
+# 2048-token sequence at qwen3-14b's heads, qwen3-moe-30b-a3b's training
+# batch (phase 13: a GQA group of 8 at hd 128), and gemma3-27b's local
+# layers at 2 x 2048 tokens, where the 1024-token window masks
+TRAIN_ATTN_CASES = [("smollm_train", 8, 1024, 9, 3, 64, None),
+                    ("qwen3_14b_train", 1, 2048, 40, 8, 128, None),
+                    ("qwen3_moe_train", 4, 1024, 32, 4, 128, None),
+                    ("gemma3_train", 2, 2048, 32, 16, 128, 1024)]
 # falcon-mamba-7b's width: (B, T, D, N)
 TRAIN_SCAN_CASE = ("falcon_mamba_train", 2, 512, 8192, 16)
 # the Functions' gradients against the all-eager computation's: the largest
@@ -1535,19 +1678,20 @@ def phase_train_grads(torch, flash, fops, flash_ref, scan, sops,
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(SEED + 10)
     out = {}
-    for label, B, T, H, Hkv, hd in TRAIN_ATTN_CASES:
+    for label, B, T, H, Hkv, hd, window in TRAIN_ATTN_CASES:
         q = torch.randn(B, T, H, hd, generator=gen, device=dev).bfloat16()
         k, v = (torch.randn(B, T, Hkv, hd, generator=gen, device=dev)
                 .bfloat16() for _ in range(2))
         w = [torch.randn(B, T, H, hd, generator=gen, device=dev)]
         before = flash.launches
-        fn = lambda *x: fops.flash_attention(*x)              # noqa: E731
+        fn = lambda *x: fops.flash_attention(*x, window)      # noqa: E731
         (got,), g_fn = grads_of(torch, fn, (q, k, v), w)
         check(flash.launches == before + 1,
               f"train grads {label}: the Function launched "
               f"{flash.launches - before} kernels, not 1")
-        (eager,), g_eager = grads_of(torch, flash_ref.attention_torch,
-                                     (q, k, v), w)
+        eager_fn = lambda *x: flash_ref.attention_torch(      # noqa: E731
+            *x, window)
+        (eager,), g_eager = grads_of(torch, eager_fn, (q, k, v), w)
         tol = ATTN_TOL["bfloat16"]
         fwd_err = (got.float() - eager.float()).abs().max().item()
         check(torch.allclose(got.float(), eager.float(), atol=tol, rtol=tol),
@@ -1558,12 +1702,12 @@ def phase_train_grads(torch, flash, fops, flash_ref, scan, sops,
               f"train grads {label}: gradients {errs} beyond {GRAD_REL_TOL}")
         it = 5
         out[label] = {
-            "shape": [B, T, H, Hkv, hd], "forward_max_abs_err": fwd_err,
-            "grad_rel_err": errs,
+            "shape": [B, T, H, Hkv, hd], "window": window,
+            "forward_max_abs_err": fwd_err, "grad_rel_err": errs,
             "function_fwd_bwd_ms": host_ms(torch, lambda: grads_of(
                 torch, fn, (q, k, v), w), it),
             "eager_fwd_bwd_ms": host_ms(torch, lambda: grads_of(
-                torch, flash_ref.attention_torch, (q, k, v), w), it)}
+                torch, eager_fn, (q, k, v), w), it)}
         log(f"[10] grads {label}: " + json.dumps(out[label]))
     label, B, T, D, N = TRAIN_SCAN_CASE
     ins = scan_inputs(torch, gen, B, T, D, N, model=True)
@@ -1968,32 +2112,92 @@ def phase_cli(cli, sweep, report) -> dict:
 # --------------------------------------------------------- MoE training
 # full width, cut in depth to what bf16 params, their bf16 gradients and f32
 # AdamW state (master, m, v: 12 bytes a parameter) leave room for
-MOE_TRAIN_LAYERS = {"qwen3-moe-30b-a3b": 4, "deepseek-v2-lite-16b": 4}
 MOE_TRAIN = dict(steps=3, batch_size=4, seq_len=1024, peak_lr=1e-3, warmup=1,
                  remat=True, log_every=1)
+# (arch, layers (None: all), the training run's TrainConfig fields, whether
+# its last step's checkpoint is saved, hashed, restored and held to the
+# state in memory, B3 calls a forward, free disk the checkpoint needs)
+MOE_TRAIN_ARCHS = (("qwen3-moe-30b-a3b", 4, MOE_TRAIN, False, 4, 0),
+                   ("deepseek-v2-lite-16b", 4, MOE_TRAIN, True, 0,
+                    40 * GiB))
 MOE_TRAIN_CUTS = ("qwen3-moe-30b-a3b layers 48 -> 4 (3.1 G parameters: bf16 "
                   "params and grads and f32 AdamW state ~56 GB; 48 layers "
                   "need ~490 GB); deepseek-v2-lite-16b layers 27 -> 4, the "
                   "dense lead layer and 3 MoE layers (2.25 G parameters, "
                   "~41 GB; its one checkpoint, params and AdamW state, is "
                   "~32 GB on disk)")
+# The last four families (phase 15).  gemma3-27b: one local/global group
+# (6 layers) of 62 at 1 x 2048 tokens, where the window masks: its tied
+# 262144 x 5376 embedding alone is 1.4 G parameters (22 GB with its grads
+# and AdamW state), and 6 layers bring it to 3.9 G (62 GB, 70 GB with the
+# new bf16 params), so a second sequence's f32 logits (4.3 GB a copy) do
+# not fit.  qwen2-vl-7b: 8 of 28 layers on the frontend's embeddings with
+# M-RoPE ids (2.95 G parameters, 47 GB).  zamba2-1.2b and musicgen-large at
+# full depth; zamba2's checkpoint (two-level banks, the shared block) is
+# saved, hashed, restored and held to memory.
+FAMILY_TRAIN = dict(steps=3, batch_size=4, seq_len=1024, peak_lr=1e-3,
+                    warmup=1, remat=True, log_every=1)
+FAMILY_TRAIN_ARCHS = (
+    ("gemma3-27b", 6, dict(FAMILY_TRAIN, batch_size=1, seq_len=2048), False,
+     6, 0),
+    ("zamba2-1.2b", None, FAMILY_TRAIN, True, 6, 24 * GiB),
+    ("qwen2-vl-7b", 8, FAMILY_TRAIN, False, 8, 0),
+    ("musicgen-large", None, FAMILY_TRAIN, False, 48, 0))
+FAMILY_TRAIN_CUTS = ("gemma3-27b layers 62 -> 6 (one local/global group; "
+                     "3.9 G parameters, ~70 GB with grads, AdamW state and "
+                     "the new params) and batch 2 -> 1 of 2048 tokens (a "
+                     "second sequence's f32 logits do not fit); qwen2-vl-7b "
+                     "layers 28 -> 8 (2.95 G parameters, ~47 GB); zamba2-1.2b "
+                     "and musicgen-large at full depth")
 
 
-def phase_train_moe(torch, get_config, LM, loop, adamw, kernels, flash,
-                    checksum, chunk_bytes: int) -> dict:
-    """MoE training through ``train.loop.train``: qwen3-moe-30b-a3b (B3 in
-    every forward, twice with remat) and deepseek-v2-lite-16b (MLA, eager;
-    one checkpoint hashed by B1, restored and held to the state in
-    memory), each at full width and cut in depth, every count set to 0 just
-    before each run and read just after."""
-    from repro_torch.tree import leaves, unflatten
-    log(f"[13] reduced: {MOE_TRAIN_CUTS}")
+def check_restored_tree(torch, tree, cfg) -> dict:
+    """The pattern-specific shape of a restored training tree: the MoE
+    router's AdamW state f32 and the lead blocks a list; a hybrid's groups a
+    list of lists, its shared block one mapping."""
+    params, opt = tree["params"], tree["opt"]
     out = {}
-    tokens_per_step = MOE_TRAIN["batch_size"] * MOE_TRAIN["seq_len"]
-    for arch, n_layers in MOE_TRAIN_LAYERS.items():
-        cfg = get_config(arch).with_(n_layers=n_layers)
-        ckpt = arch.startswith("deepseek")
-        tmp = train_dir(40 * GiB) if ckpt else None
+    if cfg.moe is not None:
+        routers = [b["moe"]["router"] for part in (opt.master, opt.m, opt.v)
+                   for b in part["blocks"]]
+        check(len(routers) == 3 * len(params["blocks"]) and all(
+            r.dtype == torch.float32 for r in routers),
+            f"{cfg.name}: the router's AdamW state is not f32")
+        check(isinstance(params["lead"], list)
+              and len(params["lead"]) == cfg.moe.first_dense_layers,
+              f"{cfg.name}: the lead blocks did not restore as a list")
+        out["router_state_f32"] = True
+    if cfg.hybrid is not None:
+        e = cfg.hybrid.shared_attn_every
+        g, n_tail = divmod(cfg.n_layers, e)
+        check(len(params["groups"]) == g and all(
+            isinstance(x, list) and len(x) == e for x in params["groups"])
+            and "attn" in params["shared"]
+            and len(params["tail"] or []) == n_tail,
+            f"{cfg.name}: the restored hybrid tree has another layout")
+        out["hybrid_layout"] = f"{g} groups of {e}, shared, tail {n_tail}"
+    return out
+
+
+def phase_train_archs(torch, get_config, LM, loop, adamw, kernels, flash,
+                      checksum, chunk_bytes: int, specs, label: int,
+                      cuts: str) -> dict:
+    """Training through ``train.loop.train`` of each spec's model at full
+    width, cut in depth where memory forces it: B3 in every attention
+    forward (twice with remat), a finite loss (and a positive MoE ``aux``);
+    where the spec says so, the last step's checkpoint hashed by B1 at its
+    save and its restore, restored and held to the state in memory.  Every
+    count is set to 0 just before each run and read just after; then a
+    steady-state step of a fresh model, and its halves apart."""
+    from repro_torch.tree import leaves, unflatten
+    log(f"[{label}] reduced: {cuts}")
+    out = {}
+    for arch, n_layers, train, ckpt, calls, disk in specs:
+        cfg = get_config(arch)
+        if n_layers:
+            cfg = cfg.with_(n_layers=n_layers)
+        tokens_per_step = train["batch_size"] * train["seq_len"]
+        tmp = train_dir(disk) if ckpt else None
         saved = {}
         save = loop.save_checkpoint
 
@@ -2007,7 +2211,7 @@ def phase_train_moe(torch, get_config, LM, loop, adamw, kernels, flash,
         torch.cuda.reset_peak_memory_stats()
         tc = loop.TrainConfig(device=DEVICE, seed=SEED,
                               ckpt_dir=tmp and os.path.join(tmp, "ckpts"),
-                              ckpt_every=MOE_TRAIN["steps"], **MOE_TRAIN)
+                              ckpt_every=train["steps"], **train)
         try:
             loop.save_checkpoint = kept_save
             for k in kernels:
@@ -2021,15 +2225,15 @@ def phase_train_moe(torch, get_config, LM, loop, adamw, kernels, flash,
                         for k in kernels}
             by_path = dict(flash.launches_by_path)           # path ends
             peak_gb = torch.cuda.max_memory_allocated() / 1e9
-            check(len(res.losses) == MOE_TRAIN["steps"] and all(
+            check(len(res.losses) == train["steps"] and all(
                 x == x and abs(x) < float("inf") for x in res.losses + res.aux)
-                and all(a > 0 for a in res.aux),
+                and (cfg.moe is None or all(a > 0 for a in res.aux)),
                 f"{arch}: losses {res.losses}, aux {res.aux}")
-            remat = 1 + int(MOE_TRAIN["remat"])
-            want_flash = 0 if cfg.mla else n_layers * MOE_TRAIN["steps"] * remat
-            entry = {"config": f"{arch} at d {cfg.d_model}, {n_layers} of "
-                               f"{get_config(arch).n_layers} layers, bf16, "
-                               f"AdamW", **MOE_TRAIN,
+            remat = 1 + int(train["remat"])
+            want_flash = calls * train["steps"] * remat
+            entry = {"config": f"{arch} at d {cfg.d_model}, {cfg.n_layers} "
+                               f"of {get_config(arch).n_layers} layers, "
+                               f"bf16, AdamW", **train,
                      "losses": res.losses, "aux": res.aux,
                      "launches": launches, "flash_launches_by_path": by_path,
                      "wall_s": wall, "loop_wall_s": res.wall_s,
@@ -2045,22 +2249,14 @@ def phase_train_moe(torch, get_config, LM, loop, adamw, kernels, flash,
                 got = loop.restore_checkpoint(tc.ckpt_dir, saved["tree"],
                                               device=DEVICE)
                 restore_s = time.perf_counter() - t
-                check(got is not None and got[0] == MOE_TRAIN["steps"],
+                check(got is not None and got[0] == train["steps"],
                       f"{arch}: no checkpoint restored")
                 tree = got[1]
                 for a, b in zip(leaves(tree), leaves(saved["tree"])):
                     check(a.dtype == b.dtype and torch.equal(a, b),
                           f"{arch}: the restored checkpoint differs from "
                           f"the state in memory")
-                routers = [b["moe"]["router"] for part in (
-                    tree["opt"].master, tree["opt"].m, tree["opt"].v)
-                    for b in part["blocks"]]
-                check(len(routers) == 3 * (n_layers - 1) and all(
-                    r.dtype == torch.float32 for r in routers),
-                    f"{arch}: the router's AdamW state is not f32")
-                check(isinstance(tree["params"]["lead"], list)
-                      and len(tree["params"]["lead"]) == 1,
-                      f"{arch}: the lead blocks did not restore as a list")
+                entry.update(check_restored_tree(torch, tree, cfg))
                 check(checksum.launches == per["scan"],
                       f"{arch}: restore hashed {checksum.launches}, want "
                       f"{per['scan']}")
@@ -2068,7 +2264,7 @@ def phase_train_moe(torch, get_config, LM, loop, adamw, kernels, flash,
                              save_s=saved["save_s"], restore_s=restore_s,
                              save_gb_per_s=per["bytes"] / saved["save_s"] / 1e9,
                              restore_gb_per_s=per["bytes"] / restore_s / 1e9,
-                             restored_equal=True, router_state_f32=True)
+                             restored_equal=True)
                 del tree, got
             want = {"checksum": want_hash, "lane_step": 0, "mamba_scan": 0,
                     "flash_attention": want_flash}
@@ -2089,8 +2285,8 @@ def phase_train_moe(torch, get_config, LM, loop, adamw, kernels, flash,
         model.requires_grad_(True)
         state = adamw.init(model.params())
         step_fn = loop.make_train_step(model, adamw.AdamWConfig(), tc)
-        data = loop.for_model(cfg, MOE_TRAIN["batch_size"],
-                              MOE_TRAIN["seq_len"], SEED)
+        data = loop.for_model(cfg, train["batch_size"], train["seq_len"],
+                              SEED)
         batch = {k: torch.from_numpy(v).to(DEVICE)
                  for k, v in data.batch_at(0).items()}
 
@@ -2104,11 +2300,13 @@ def phase_train_moe(torch, get_config, LM, loop, adamw, kernels, flash,
 
         def fwd_bwd():
             loss, _ = model.loss_fn(batch)
-            return torch.autograd.grad(loss, leaves(params))
+            return torch.autograd.grad(loss, leaves(params),
+                                       allow_unused=True,
+                                       materialize_grads=True)
 
         fwd_bwd_ms = host_ms(torch, fwd_bwd, 1, warmup=0)
         grads = unflatten(params, list(fwd_bwd()))
-        lr = torch.tensor(MOE_TRAIN["peak_lr"], device=DEVICE)
+        lr = torch.tensor(train["peak_lr"], device=DEVICE)
         update_ms = host_ms(torch, lambda: adamw.update(grads, state, lr), 1,
                             warmup=0)
         entry.update(step_ms=step_ms,
@@ -2119,11 +2317,17 @@ def phase_train_moe(torch, get_config, LM, loop, adamw, kernels, flash,
         del model, state, step_fn, batch, grads, params
         torch.cuda.empty_cache()
         out[arch] = entry
-        log(f"[13] train {arch}: " + json.dumps(entry))
+        log(f"[{label}] train {arch}: " + json.dumps(entry))
     return out
 
 
 def main() -> None:
+    # one allocator pool that grows in place: phase 15's gemma3 step peaks
+    # at ~71 GB of the card's 79, and a pool fragmented into fixed segments
+    # by the earlier phases (10 GB reserved but unallocated in one run)
+    # would not hold it
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA "
@@ -2224,8 +2428,9 @@ def main() -> None:
     moe_served = timed(12, phase_serve, torch, get_config, LM, launch_serve,
                        Engine, flash, scan, (kernel, lane_kernel),
                        MOE_SERVE_ARCHS, 12)
-    moe_trained = timed(13, phase_train_moe, torch, get_config, LM, loop,
-                        adamw, kernels, flash, kernel, _CHUNK_BYTES)
+    moe_trained = timed(13, phase_train_archs, torch, get_config, LM, loop,
+                        adamw, kernels, flash, kernel, _CHUNK_BYTES,
+                        MOE_TRAIN_ARCHS, 13, MOE_TRAIN_CUTS)
     # the MoE paths' launches: B3 in qwen3-moe's prefills and training
     # forwards, B1 over deepseek-v2-lite's checkpoint
     flash_entry["launches_moe_serve"] = {
@@ -2234,6 +2439,22 @@ def main() -> None:
         a: r["launches"]["flash_attention"] for a, r in moe_trained.items()}
     entry["launches_moe_training"] = {
         a: r["launches"]["checksum"] for a, r in moe_trained.items()}
+    log(f"[14] reduced: {FAMILY_CUTS}")
+    family_served = timed(14, phase_serve, torch, get_config, LM,
+                          launch_serve, Engine, flash, scan,
+                          (kernel, lane_kernel), FAMILY_SERVE_ARCHS, 14)
+    family_trained = timed(15, phase_train_archs, torch, get_config, LM,
+                           loop, adamw, kernels, flash, kernel, _CHUNK_BYTES,
+                           FAMILY_TRAIN_ARCHS, 15, FAMILY_TRAIN_CUTS)
+    # the last four families' launches: B3 in every prefill and training
+    # forward, B1 over zamba2-1.2b's checkpoint
+    flash_entry["launches_family_serve"] = {
+        a: r["launches"]["flash"] for a, r in family_served.items()}
+    flash_entry["launches_family_training"] = {
+        a: r["launches"]["flash_attention"]
+        for a, r in family_trained.items()}
+    entry["launches_family_training"] = {
+        a: r["launches"]["checksum"] for a, r in family_trained.items()}
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "repro"))
     check(not leaked, f"JAX-side modules were imported: {leaked}")

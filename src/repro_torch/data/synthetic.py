@@ -7,7 +7,10 @@ distribution with a next-token structure (affine hash chain) so small models
 actually learn and loss decreases.
 
 A copy of the JAX package's ``data/synthetic.py``, numpy operation for
-operation, so both packages draw the same batches from the same seed.
+operation, so both packages draw the same batches from the same seed.  The
+embedding table of ``embeds_dim`` (a pure function of the seed, vocab x d:
+545 M draws for qwen2-vl-7b) is drawn once a stream, where the reference
+draws it again for every batch.
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ class SyntheticConfig:
 class SyntheticTokens:
     def __init__(self, cfg: SyntheticConfig):
         self.cfg = cfg
+        self._table = None
 
     def batch_at(self, step: int) -> Dict[str, np.ndarray]:
         c = self.cfg
@@ -53,10 +57,11 @@ class SyntheticTokens:
             toks[:, t] = np.where(noise, rand, nxt)
         out: Dict[str, np.ndarray] = {}
         if c.embeds_dim:
-            emb_rng = np.random.default_rng(c.seed ^ 0xE)
-            table = emb_rng.normal(0, 0.02, (c.vocab_size, c.embeds_dim)
-                                   ).astype(np.float32)
-            out["embeds"] = table[toks[:, :-1]]
+            if self._table is None:
+                emb_rng = np.random.default_rng(c.seed ^ 0xE)
+                self._table = emb_rng.normal(
+                    0, 0.02, (c.vocab_size, c.embeds_dim)).astype(np.float32)
+            out["embeds"] = self._table[toks[:, :-1]]
             out["labels"] = toks[:, 1:].astype(np.int32)
         else:
             out["tokens"] = toks[:, :-1].astype(np.int32)

@@ -33,13 +33,14 @@ from repro_torch.serve.engine import Engine, Request
 
 def prompts(cfg: ModelConfig, n: int, max_seq: int, seed: int
             ) -> List[np.ndarray]:
-    """``n`` prompts of 4 to max_seq/4 tokens, drawn as the JAX package's
-    launcher draws them."""
+    """``n`` prompts of 4 to max_seq/4 tokens ((plen, K) for K codebooks),
+    drawn as the JAX package's launcher draws them."""
     rng = np.random.default_rng(seed)
     out = []
     for _ in range(n):
         plen = int(rng.integers(4, max_seq // 4))
-        out.append(rng.integers(0, cfg.vocab_size, plen))
+        shape = (plen, cfg.n_codebooks) if cfg.n_codebooks > 1 else plen
+        out.append(rng.integers(0, cfg.vocab_size, shape))
     return out
 
 

@@ -1,4 +1,5 @@
-"""Core transformer layers: RMSNorm, RoPE, GQA and MLA attention, gated MLP.
+"""Core transformer layers: RMSNorm, RoPE and M-RoPE, GQA and MLA attention,
+gated MLP.
 
 A port of the JAX package's ``models/layers.py``.
 Conventions are the reference's:
@@ -13,19 +14,20 @@ Conventions are the reference's:
   to q's dtype; the MLP takes its SiLU in f32 and casts before ``w_down``.
 
 Attention runs full causal, sliding-window causal, and decode over a KV
-cache.  Where the queries are the whole sequence at positions arange(T) and
-the keys are those same T tokens (the forward, and a prefill into a cache
-from position 0), ``sdpa`` goes to the flash-attention op (B3): the CUDA
-kernel for tensors on the card, its plain version on the CPU.  Everything
-else (decode, with a ``valid`` mask and cache offsets) is plain PyTorch, as
-it is jnp outside any kernel in the reference.
+cache: a full-length one, or for a windowed layer whose cache is no longer
+than its window a ring buffer (slot = position mod S, each stored key
+rotated at its absolute position).  Where the queries are the whole
+sequence at positions arange(T) and the keys are those same T tokens (the
+forward, and a prefill into a cache or a ring from position 0), ``sdpa``
+goes to the flash-attention op (B3): the CUDA kernel for tensors on the
+card, its plain version on the CPU.  Everything else (decode, with a
+``valid`` mask and cache offsets) is plain PyTorch, as it is jnp outside any
+kernel in the reference.
 
 Multi-head Latent Attention (``mla_attention``, DeepSeek-V2) is plain
 PyTorch throughout, as the reference computes it outside any kernel: its
 q.k head dim (nope + rope, 192 for deepseek-v2-lite) is not its v head dim
-(128), which the flash-attention kernel does not take.  M-RoPE and
-ring-buffer caches for windowed layers are not ported yet (ROADMAP Queue A,
-step 7).
+(128), which the flash-attention kernel does not take.
 """
 from __future__ import annotations
 
@@ -76,6 +78,27 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     """x: (B, T, H, hd); positions: (B, T) -> rotated x (same dtype)."""
     freqs = rope_freqs(x.shape[-1], theta, x.device)           # (hd/2,)
     ang = positions[..., None].float() * freqs                  # (B, T, hd/2)
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections: Tuple[int, int, int]) -> torch.Tensor:
+    """Multimodal RoPE (Qwen2-VL): positions3 (3, B, T) = (t, h, w) ids.
+
+    The frequencies are split into 3 sections, each rotated by its own
+    position stream; ``sections`` counts frequency *pairs* and sums to
+    head_dim // 2."""
+    hd = x.shape[-1]
+    assert sum(sections) == hd // 2, (sections, hd)
+    freqs = rope_freqs(hd, theta, x.device)                     # (hd/2,)
+    sec_id = torch.repeat_interleave(
+        torch.arange(3, device=x.device),
+        torch.tensor(sections, device=x.device))                # (hd/2,)
+    pos = positions3.to(x.device).float()[sec_id]               # (hd/2, B, T)
+    ang = pos.permute(1, 2, 0) * freqs                          # (B, T, hd/2)
     cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
@@ -152,12 +175,14 @@ def attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
               cache: Optional[KVCache] = None,
               cache_index: Optional[int] = None,
               window: Optional[int] = None,
+              positions3: Optional[torch.Tensor] = None,
               ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """GQA attention.  Forward: cache=None, positions arange(T).  Serving:
-    a full-length cache and the write index ``cache_index``; the new k and v
-    are written into the cache in place (cast to its dtype), and the same
-    cache is returned.  Ring-buffer caches (a cache no longer than a
-    window) are not ported yet."""
+    a cache and the write index ``cache_index``; the new k and v are written
+    into the cache in place (cast to its dtype), and the same cache is
+    returned.  A windowed layer whose cache is no longer than its window
+    keeps a ring buffer.  ``positions3`` (3, B, T) rotates q and k by
+    M-RoPE where the config has it."""
     B, T, _ = x.shape
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = (x @ p["wq"]).reshape(B, T, H, hd)
@@ -166,38 +191,65 @@ def attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
         k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.mrope and positions3 is not None:
+        q = apply_mrope(q, positions3, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_mrope(k, positions3, cfg.rope_theta, cfg.mrope_sections)
+    else:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
 
     if cache is None:
         out = sdpa(q, k, v, positions, positions, window, prefix=True)
         return out.reshape(B, T, H * hd) @ p["wo"], None
 
     S = cache.k.shape[1]
-    if window is not None and S <= window:
-        raise NotImplementedError(
-            "ring-buffer KV caches for sliding-window layers are not ported "
-            "yet (ROADMAP Queue A, step 7: local_global)")
-    # full cache: write the new k/v at cache_index (in place), attend over
-    # the filled slots
-    cache.k[:, cache_index:cache_index + T] = k.to(cache.k.dtype)
-    cache.v[:, cache_index:cache_index + T] = v.to(cache.v.dtype)
-    if cache_index == 0 and T > 1:
-        # A prefill from position 0.  The reference attends over the whole
-        # cache with k_pos = arange(S) and valid = k_pos <= T - 1: slots
-        # >= T are exactly the ones `valid` masks, and slots < T hold this
-        # call's k and v as written (cast to the cache dtype).  So causal
-        # attention over the cache's first T slots, with queries and keys
-        # both at arange(T), gives the reference's result; it goes to the
-        # flash-attention op, reading the cache slice through its strides.
-        ck = cache.k[:, :T].to(q.dtype)
-        cv = cache.v[:, :T].to(q.dtype)
-        out = sdpa(q, ck, cv, None, None, window, prefix=True)
-    else:
-        k_pos = torch.arange(S, device=x.device)[None].expand(B, S)
-        valid = k_pos <= positions[:, -1:]        # (B, S): only filled slots
+    ring = window is not None and S <= window
+    if ring and T > 1:
+        # prefill into a ring: windowed attention over the call's own k and
+        # v (uncast), then the last W = min(T, S) of them stored at slots
+        # pos % S.  The reference attends at the given positions; a prefill
+        # from position 0 has them at arange(T), so it goes to the op.
+        if cache_index == 0:
+            out = sdpa(q, k, v, None, None, window, prefix=True)
+        else:
+            out = sdpa(q, k, v, positions, positions, window)
+        W = min(T, S)
+        slots = torch.arange(T - W, T, device=x.device) % S
+        cache.k[:, slots] = k[:, -W:].to(cache.k.dtype)
+        cache.v[:, slots] = v[:, -W:].to(cache.v.dtype)
+    elif ring:
+        # decode into a ring: write at slot t % S; each slot's absolute
+        # position is t - ((t - j) mod S), valid where it is >= 0
+        slot = cache_index % S
+        cache.k[:, slot:slot + T] = k.to(cache.k.dtype)
+        cache.v[:, slot:slot + T] = v.to(cache.v.dtype)
+        j = torch.arange(S, device=x.device)
+        t_now = positions[:, -1:]                              # (B, 1)
+        k_pos = t_now - torch.remainder(t_now - j[None, :], S)  # (B, S)
         out = sdpa(q, cache.k, cache.v, positions, k_pos, window,
-                   valid=valid)
+                   valid=k_pos >= 0)
+    else:
+        # full cache: write the new k/v at cache_index (in place), attend
+        # over the filled slots
+        cache.k[:, cache_index:cache_index + T] = k.to(cache.k.dtype)
+        cache.v[:, cache_index:cache_index + T] = v.to(cache.v.dtype)
+        if cache_index == 0 and T > 1:
+            # A prefill from position 0.  The reference attends over the
+            # whole cache with k_pos = arange(S) and valid = k_pos <= T - 1:
+            # slots >= T are exactly the ones `valid` masks, and slots < T
+            # hold this call's k and v as written (cast to the cache dtype).
+            # So causal attention over the cache's first T slots, with
+            # queries and keys both at arange(T), gives the reference's
+            # result; it goes to the flash-attention op, reading the cache
+            # slice through its strides.
+            ck = cache.k[:, :T].to(q.dtype)
+            cv = cache.v[:, :T].to(q.dtype)
+            out = sdpa(q, ck, cv, None, None, window, prefix=True)
+        else:
+            k_pos = torch.arange(S, device=x.device)[None].expand(B, S)
+            valid = k_pos <= positions[:, -1:]    # (B, S): only filled slots
+            out = sdpa(q, cache.k, cache.v, positions, k_pos, window,
+                       valid=valid)
     return out.reshape(B, T, H * hd) @ p["wo"], cache
 
 

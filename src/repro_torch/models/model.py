@@ -1,40 +1,56 @@
 """Decoder LM: init, forward, loss, prefill, decode.
 
-A port of the JAX package's ``models/model.py`` for three of its layer
+A port of the JAX package's ``models/model.py`` for all five of its layer
 patterns (``derive_pattern``):
 
-* ``uniform_attn`` with plain GQA attention (smollm-135m, qwen3-14b with
-  qk-norm, starcoder2-15b);
+* ``uniform_attn`` with GQA attention (smollm-135m, qwen3-14b with qk-norm,
+  starcoder2-15b; qwen2-vl-7b with M-RoPE over the frontend's embeddings,
+  musicgen-large with 4 codebooks);
 * ``moe``: ``n_lead`` dense blocks (FFN width ``d_ff_dense``), then blocks
   whose FFN is a mixture of experts, with GQA attention (qwen3-moe-30b-a3b)
   or Multi-head Latent Attention (deepseek-v2-lite-16b);
-* ``ssm`` with Mamba1 layers (falcon-mamba-7b).
+* ``ssm`` with Mamba1 layers (falcon-mamba-7b);
+* ``local_global`` (gemma3-27b): groups of ``group_local`` sliding-window
+  layers and one global layer, then a tail of windowed layers; the
+  windowed layers keep ring-buffer caches of the window's length;
+* ``hybrid`` (zamba2-1.2b): groups of ``group_local`` Mamba2 layers, each
+  group followed by one weight-shared attention block (with a KV cache per
+  call site), then a tail of Mamba2 layers.
 
-Every other pattern or option raises ``NotImplementedError`` naming the
-ROADMAP item that ports it.  The reference scans over stacked parameter
-banks to keep its compiled graph small; here each layer is an ``nn.Module``
-in an ``nn.ModuleList``, run in a Python loop, and a layer's parameters are
-the reference's, unstacked, in its ``(in, out)`` layout.  The lead blocks
-are a plain list in the reference too (``params["lead"]``).  Parameters
-start frozen (``requires_grad=False``), and serving runs under
-``no_grad``.  A trainer calls ``requires_grad_()`` and differentiates
+The reference scans over stacked parameter banks to keep its compiled
+graph small; here each layer is an ``nn.Module`` in an ``nn.ModuleList``,
+run in a Python loop, and a layer's parameters are the reference's,
+unstacked, in its ``(in, out)`` layout.  The parameter tree mirrors the
+reference's: ``blocks`` and the MoE ``lead`` are lists of layers;
+``groups`` a list of ``{"local": [layers], "global": layer}`` (local_global)
+or of lists of layers (hybrid); ``shared`` one block; ``tail`` a list of
+layers, or None where there is none, as the reference's ``stack_init``
+gives.  Parameters start frozen (``requires_grad=False``), and serving runs
+under ``no_grad``.  A trainer calls ``requires_grad_()`` and differentiates
 ``loss_fn``: the kernels' ops then go through their ``autograd.Function``s,
 whose backward is eager PyTorch.  ``load_params`` writes a parameter tree
 into the model (the optimizer's new bf16 params, a restored checkpoint),
 leaf dtypes included.  ``remat`` recomputes each block in the backward pass
-(``torch.utils.checkpoint``), as the reference's per-layer
-``jax.checkpoint`` does in its train mode.
+(``torch.utils.checkpoint``), as the reference's ``jax.checkpoint`` does in
+its train mode.
 
-Caches are ``{"blocks": [per-layer state]}``, plus ``"lead"`` for the lead
-blocks.  KV and MLA caches are written in place (the new entries cast to
-the cache's dtype); a Mamba1 layer's state is replaced by the new one each
-call, so the conv state takes the dtype its concatenation promotes to, as
-the reference's scan output does.  As in the reference, KV and MLA caches
-and conv states start as bf16 even for f32 parameters, and ``h`` is f32.
+Inputs are token ids (B, T), or (B, T, K) for K codebooks, or a batch
+mapping: ``{"tokens"}`` or, where the config has ``embed_inputs=False``,
+``{"embeds"}`` from the frontend, with M-RoPE's ``positions3`` (3, B, T)
+beside them.  Caches mirror the parameter tree: ``{"blocks": [per-layer
+state]}`` plus ``"lead"``; ``{"groups": [{"local": [...], "global": ...}],
+"tail": [...]}``; or ``{"groups": [[...]], "shared": [per call site],
+"tail": [...]}``.  KV and MLA caches are written in place (the new entries
+cast to the cache's dtype); an SSM layer's state is replaced by the new one
+each call, so the conv state takes the dtype its concatenation promotes to,
+as the reference's scan output does.  As in the reference, KV and MLA
+caches and conv states start as bf16 even for f32 parameters, and ``h`` is
+f32.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Mapping, NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, Mapping, NamedTuple, Optional, Tuple, \
+    Union
 
 import torch
 from torch import nn
@@ -47,7 +63,8 @@ from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.config import ModelConfig
 
-Cache = Dict[str, List[Any]]
+Cache = Dict[str, Any]
+Inputs = Union[torch.Tensor, Mapping[str, Any]]
 
 
 # ===================================================================== pattern
@@ -80,28 +97,8 @@ def derive_pattern(cfg: ModelConfig) -> Pattern:
     return Pattern("uniform_attn", n_scan=cfg.n_layers)
 
 
-def check_ported(cfg: ModelConfig) -> Pattern:
-    """The config's pattern, or ``NotImplementedError`` naming the ROADMAP
-    item (Queue A, step 7) that ports what it needs."""
-    pat = derive_pattern(cfg)
-    missing = []
-    if pat.kind not in ("uniform_attn", "moe", "ssm"):
-        missing.append({"local_global": "local_global and ring caches",
-                        "hybrid": "hybrid and Mamba2"}[pat.kind])
-    if cfg.ssm is not None and cfg.ssm.version != 1:
-        missing.append("Mamba2")
-    if cfg.mrope:
-        missing.append("M-RoPE and frontends")
-    if cfg.n_codebooks > 1:
-        missing.append("multiple codebooks")
-    if not cfg.embed_inputs:
-        missing.append("embed_inputs=False (frontends)")
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP "
-            f"Queue A, step 7); the port runs the uniform_attn (GQA), moe "
-            f"(GQA or MLA attention) and ssm (Mamba1) patterns")
-    return pat
+# the parameter tree's keys that hold layers (the rest is ``LM.io``)
+LAYER_KEYS = ("blocks", "lead", "groups", "shared", "tail")
 
 
 # ===================================================================== blocks
@@ -161,7 +158,7 @@ class AttnBlock(ParamTree):
         self.cfg = cfg
 
     def forward(self, x, positions, cache=None, cache_index=None,
-                window=None):
+                window=None, positions3=None):
         cfg = self.cfg
         h = L.rmsnorm(self["ln1"], x, cfg.norm_eps)
         if cfg.mla is not None:
@@ -169,7 +166,8 @@ class AttnBlock(ParamTree):
                                            cache, cache_index)
         else:
             a, new_cache = L.attention(self["attn"], cfg, h, positions,
-                                       cache, cache_index, window)
+                                       cache, cache_index, window,
+                                       positions3)
         x = x + a
         h = L.rmsnorm(self["ln2"], x, cfg.norm_eps)
         if "moe" in self._modules:
@@ -181,11 +179,11 @@ class AttnBlock(ParamTree):
 
 def init_ssm_layer(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
     return {"ln": L.init_rmsnorm(cfg.d_model, dtype, gen.device),
-            "ssm": SSM.init_mamba1(gen, cfg, dtype)}
+            "ssm": SSM.init_ssm_block(gen, cfg, dtype)}
 
 
 class SSMLayer(ParamTree):
-    """Pre-norm Mamba1 layer: ``ln``, ``ssm``."""
+    """Pre-norm SSM layer (Mamba1 or Mamba2): ``ln``, ``ssm``."""
 
     def __init__(self, cfg: ModelConfig, params: Mapping[str, Any]):
         super().__init__(params)
@@ -193,8 +191,8 @@ class SSMLayer(ParamTree):
 
     def forward(self, x, state=None, return_state=False):
         h = L.rmsnorm(self["ln"], x, self.cfg.norm_eps)
-        y, new_state = SSM.mamba1_block(self["ssm"], self.cfg, h, state,
-                                        return_state)
+        y, new_state = SSM.ssm_block(self["ssm"], self.cfg, h, state,
+                                     return_state)
         return x + y, new_state
 
 
@@ -210,24 +208,53 @@ class LM(nn.Module):
                  params: Optional[Mapping[str, Any]] = None, seed: int = 0,
                  remat: bool = True):
         super().__init__()
-        self.pattern = check_ported(cfg)
+        self.pattern = pat = derive_pattern(cfg)
         self.cfg = cfg
         self.dtype = dtype
         self.remat = remat
         self.device = require_device(device)
         if params is None:
             params = self.init(seed)
-        lead = params.get("lead") or []
-        if (len(lead) != self.pattern.n_lead
-                or len(lead) + len(params["blocks"]) != cfg.n_layers):
-            raise ValueError(f"{len(lead)} lead and {len(params['blocks'])} "
-                             f"blocks for {cfg.n_layers} layers "
-                             f"({self.pattern.n_lead} lead)")
+        self._check_layers(params)
         self.io = ParamTree({k: v for k, v in params.items()
-                             if k not in ("blocks", "lead")})
-        self.lead = nn.ModuleList(AttnBlock(cfg, p) for p in lead)
-        block = SSMLayer if self.pattern.kind == "ssm" else AttnBlock
-        self.blocks = nn.ModuleList(block(cfg, p) for p in params["blocks"])
+                             if k not in LAYER_KEYS})
+        attn = lambda p: AttnBlock(cfg, p)                   # noqa: E731
+        ssm = lambda p: SSMLayer(cfg, p)                     # noqa: E731
+        self.lead = nn.ModuleList(attn(p) for p in params.get("lead") or [])
+        self.blocks = nn.ModuleList(
+            (ssm if pat.kind == "ssm" else attn)(p)
+            for p in params.get("blocks") or [])
+        if pat.kind == "local_global":
+            self.groups = nn.ModuleList(nn.ModuleDict({
+                "local": nn.ModuleList(attn(p) for p in g["local"]),
+                "global": attn(g["global"])}) for g in params["groups"])
+        elif pat.kind == "hybrid":
+            self.groups = nn.ModuleList(nn.ModuleList(ssm(p) for p in g)
+                                        for g in params["groups"])
+            self.shared = attn(params["shared"])
+        tail = ssm if pat.kind == "hybrid" else attn
+        self.tail = nn.ModuleList(tail(p) for p in params.get("tail") or [])
+
+    def _check_layers(self, params: Mapping[str, Any]) -> None:
+        """``ValueError`` unless the tree holds the pattern's layers."""
+        pat, kind = self.pattern, self.pattern.kind
+        n_tail = len(params.get("tail") or [])
+        if kind in ("local_global", "hybrid"):
+            groups = params["groups"]
+            per = [len(g["local"] if kind == "local_global" else g)
+                   for g in groups]
+            got = (f"{len(groups)} groups of {per} and a tail of {n_tail}")
+            ok = (len(groups) == pat.n_groups and n_tail == pat.n_tail
+                  and all(n == pat.group_local for n in per))
+        else:
+            n_lead = len(params.get("lead") or [])
+            n_blocks = len(params.get("blocks") or [])
+            got = f"{n_lead} lead and {n_blocks} blocks"
+            ok = (n_lead == pat.n_lead
+                  and n_lead + n_blocks == self.cfg.n_layers)
+        if not ok:
+            raise ValueError(f"{got} for {self.cfg.n_layers} layers "
+                             f"({pat})")
 
     # ------------------------------------------------------------------ init
     def init(self, seed: int) -> dict:
@@ -236,33 +263,65 @@ class LM(nn.Module):
         numbers (``jax.random`` draws others)."""
         cfg, dtype, pat = self.cfg, self.dtype, self.pattern
         gen = torch.Generator(device=self.device).manual_seed(seed)
+        K = cfg.n_codebooks
+        books = (K,) if K > 1 else ()
         p: Dict[str, Any] = {
-            "embed": L._dense_init(gen, (cfg.vocab_size, cfg.d_model), dtype,
-                                   scale=0.02),
+            "embed": L._dense_init(
+                gen, (*(books if cfg.embed_inputs else ()), cfg.vocab_size,
+                      cfg.d_model), dtype, scale=0.02),
             "final_norm": L.init_rmsnorm(cfg.d_model, dtype, self.device)}
         if not cfg.tie_embeddings:
-            p["lm_head"] = L._dense_init(gen, (cfg.d_model, cfg.vocab_size),
-                                         dtype)
+            # (d, V) per codebook; L._dense_init scales by the first axis of
+            # its shape, so a book's head is drawn as the reference's is,
+            # at 1/sqrt(K) for K codebooks
+            p["lm_head"] = L._dense_init(gen, (*books, cfg.d_model,
+                                               cfg.vocab_size), dtype)
+
+        def attn(**kw):
+            return init_attn_block(gen, cfg, dtype, **kw)
+
+        def ssm():
+            return init_ssm_layer(gen, cfg, dtype)
+
+        def stack(n, fn):
+            return [fn() for _ in range(n)] or None
+
         if pat.kind == "ssm":
-            p["blocks"] = [init_ssm_layer(gen, cfg, dtype)
-                           for _ in range(pat.n_scan)]
+            p["blocks"] = stack(pat.n_scan, ssm)
         elif pat.kind == "moe":
             if pat.n_lead:
-                p["lead"] = [init_attn_block(gen, cfg, dtype,
-                                             dense_ff=cfg.moe.d_ff_dense)
+                p["lead"] = [attn(dense_ff=cfg.moe.d_ff_dense)
                              for _ in range(pat.n_lead)]
-            p["blocks"] = [init_attn_block(gen, cfg, dtype, use_moe=True)
-                           for _ in range(pat.n_scan)]
+            p["blocks"] = stack(pat.n_scan, lambda: attn(use_moe=True))
+        elif pat.kind == "local_global":
+            p["groups"] = [{"local": stack(pat.group_local, attn),
+                            "global": attn()} for _ in range(pat.n_groups)]
+            p["tail"] = stack(pat.n_tail, attn)
+        elif pat.kind == "hybrid":
+            p["groups"] = [stack(pat.group_local, ssm)
+                           for _ in range(pat.n_groups)]
+            p["shared"] = attn()
+            p["tail"] = stack(pat.n_tail, ssm)
         else:
-            p["blocks"] = [init_attn_block(gen, cfg, dtype)
-                           for _ in range(pat.n_scan)]
+            p["blocks"] = stack(pat.n_scan, attn)
         return p
 
     def _trees(self, of) -> dict:
         out = dict(of(self.io))
+        kind = self.pattern.kind
         if self.pattern.n_lead:
             out["lead"] = [of(b) for b in self.lead]
-        out["blocks"] = [of(b) for b in self.blocks]
+        if kind == "local_global":
+            out["groups"] = [{"local": [of(b) for b in g["local"]],
+                              "global": of(g["global"])}
+                             for g in self.groups]
+        elif kind == "hybrid":
+            out["groups"] = [[of(b) for b in g] for g in self.groups]
+            out["shared"] = of(self.shared)
+        else:
+            out["blocks"] = [of(b) for b in self.blocks] or None
+        if kind in ("local_global", "hybrid"):
+            out["tail"] = [of(b) for b in self.tail] or None
         return out
 
     def params(self, device=None) -> dict:
@@ -301,41 +360,101 @@ class LM(nn.Module):
         shape = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
         return L.KVCache(zeros(*shape), zeros(*shape))
 
+    def _ssm_state(self, batch: int):
+        s, dev = self.cfg.ssm, self.device
+        d_in = s.expand * self.cfg.d_model
+        if s.version == 1:
+            conv, h = d_in, (d_in, s.d_state)
+            state = SSM.Mamba1State
+        else:
+            conv = d_in + 2 * s.n_groups * s.d_state
+            h = (d_in // s.headdim, s.headdim, s.d_state)
+            state = SSM.Mamba2State
+        return state(
+            torch.zeros((batch, s.d_conv - 1, conv), dtype=torch.bfloat16,
+                        device=dev),
+            torch.zeros((batch, *h), dtype=torch.float32, device=dev))
+
     def init_cache(self, batch: int, max_seq: int) -> Cache:
-        cfg, dev, pat = self.cfg, self.device, self.pattern
-        if pat.kind != "ssm":
-            c = {"blocks": [self._attn_cache(batch, max_seq)
-                            for _ in range(pat.n_scan)]}
+        """Zero caches for ``batch`` sequences of up to ``max_seq``
+        positions; a windowed layer's ring holds min(window, max_seq)."""
+        cfg, pat = self.cfg, self.pattern
+
+        def kv(n, seq=max_seq):
+            return [self._attn_cache(batch, seq) for _ in range(n)]
+
+        def ssm(n):
+            return [self._ssm_state(batch) for _ in range(n)]
+
+        c: Cache = {}
+        if pat.kind == "ssm":
+            c["blocks"] = ssm(pat.n_scan)
+        elif pat.kind == "local_global":
+            w = min(cfg.sliding_window or max_seq, max_seq)
+            c["groups"] = [{"local": kv(pat.group_local, w),
+                            "global": self._attn_cache(batch, max_seq)}
+                           for _ in range(pat.n_groups)]
+            if pat.n_tail:
+                c["tail"] = kv(pat.n_tail, w)
+        elif pat.kind == "hybrid":
+            c["groups"] = [ssm(pat.group_local) for _ in range(pat.n_groups)]
+            c["shared"] = kv(pat.n_groups)
+            if pat.n_tail:
+                c["tail"] = ssm(pat.n_tail)
+        else:
+            c["blocks"] = kv(pat.n_scan)
             if pat.n_lead:
-                c["lead"] = [self._attn_cache(batch, max_seq)
-                             for _ in range(pat.n_lead)]
-            return c
-        s = cfg.ssm
-        d_in = s.expand * cfg.d_model
-        return {"blocks": [
-            SSM.Mamba1State(
-                torch.zeros((batch, s.d_conv - 1, d_in), dtype=torch.bfloat16,
-                            device=dev),
-                torch.zeros((batch, d_in, s.d_state), dtype=torch.float32,
-                            device=dev))
-            for _ in range(pat.n_scan)]}
+                c["lead"] = kv(pat.n_lead)
+        return c
 
     # ------------------------------------------------------------- embedding
-    def embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.io["embed"][tokens.to(self.device, torch.long)]
+    def embed(self, inputs: Inputs) -> torch.Tensor:
+        """(B, T, d) activations of token ids (B, T) or (B, T, K), or of a
+        batch mapping: its ``embeds`` where the config takes the frontend's
+        (``embed_inputs=False``) and the batch has them, else its
+        ``tokens``.  K codebooks' embeddings are summed in order."""
+        cfg = self.cfg
+        batch = inputs if isinstance(inputs, Mapping) else {"tokens": inputs}
+        if not cfg.embed_inputs and "embeds" in batch:
+            return torch.as_tensor(batch["embeds"]).to(self.device,
+                                                       self.dtype)
+        tokens = torch.as_tensor(batch["tokens"]).to(self.device, torch.long)
+        table = self.io["embed"]
+        if cfg.n_codebooks > 1:
+            x = table[0][tokens[..., 0]]
+            for k in range(1, cfg.n_codebooks):
+                x = x + table[k][tokens[..., k]]
+            return x
+        return table[tokens]
 
     def unembed(self, x: torch.Tensor) -> torch.Tensor:
-        if self.cfg.tie_embeddings:
-            return x @ self.io["embed"].T
-        return x @ self.io["lm_head"]
+        """Logits (B, T, V), or (B, T, K, V) for K codebooks."""
+        cfg = self.cfg
+        if cfg.tie_embeddings:
+            head = self.io["embed"]
+            if cfg.n_codebooks > 1:
+                return torch.einsum("btd,kvd->btkv", x, head)
+            return x @ head.T
+        head = self.io["lm_head"]
+        if cfg.n_codebooks > 1:
+            return torch.einsum("btd,kdv->btkv", x, head)
+        return x @ head
+
+    def _positions3(self, inputs: Inputs) -> Optional[torch.Tensor]:
+        p3 = inputs.get("positions3") if isinstance(inputs, Mapping) else None
+        return None if p3 is None else torch.as_tensor(p3).to(self.device)
 
     # ------------------------------------------------------------- backbone
     def backbone(self, x: torch.Tensor, positions: torch.Tensor,
-                 cache: Optional[Cache] = None, t: Optional[int] = None
+                 cache: Optional[Cache] = None, t: Optional[int] = None,
+                 positions3: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, Optional[Cache], torch.Tensor]:
         """The layer stack and the final norm: (x, the new cache, the sum of
         the MoE blocks' aux losses, f32).  Without a cache, the forward over
-        positions arange(T); with one, serving from position ``t``."""
+        positions arange(T); with one, serving from position ``t``.
+        ``positions3`` reaches the attention layers of the uniform_attn and
+        moe patterns, as in the reference."""
+        cfg, kind = self.cfg, self.pattern.kind
         serving = cache is not None
         remat = self.remat and not serving and torch.is_grad_enabled()
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
@@ -346,45 +465,89 @@ class LM(nn.Module):
                 return checkpoint(block, *args, use_reentrant=False)
             return block(*args)
 
-        for name, stack, window in (("lead", self.lead, None),
-                                    ("blocks", self.blocks,
-                                     self.cfg.sliding_window)):
-            if not len(stack):
-                continue
+        def attn(block, x, state, window, p3=None):
+            nonlocal aux
+            x, state, a = run(block, x, positions, state, t, window, p3)
+            if a is not None:
+                aux = aux + a
+            return x, state
+
+        def ssm(block, x, state):
+            return run(block, x, state)
+
+        def stack(blocks, layer, caches):
+            nonlocal x
             states = []
-            for i, block in enumerate(stack):
-                state = cache[name][i] if serving else None
-                if self.pattern.kind == "ssm":
-                    x, state = run(block, x, state)
-                else:
-                    x, state, a = run(block, x, positions, state, t, window)
-                    if a is not None:
-                        aux = aux + a
+            for i, block in enumerate(blocks):
+                x, state = layer(block, x, caches[i] if serving else None)
                 states.append(state)
-            new_cache[name] = states
-        x = L.rmsnorm(self.io["final_norm"], x, self.cfg.norm_eps)
+            return states
+
+        def cached(*path):
+            node = cache
+            for key in path:
+                node = node[key] if serving else None
+            return node
+
+        if kind in ("uniform_attn", "moe"):
+            for name, window in (("lead", None),
+                                 ("blocks", cfg.sliding_window)):
+                blocks = getattr(self, name)
+                if len(blocks):
+                    new_cache[name] = stack(
+                        blocks, lambda b, x, s, w=window: attn(
+                            b, x, s, w, positions3), cached(name))
+        elif kind == "ssm":
+            new_cache["blocks"] = stack(self.blocks, ssm, cached("blocks"))
+        elif kind == "local_global":
+            w = cfg.sliding_window
+            local = lambda b, x, s: attn(b, x, s, w)          # noqa: E731
+            groups = []
+            for i, g in enumerate(self.groups):
+                states = stack(g["local"], local, cached("groups", i,
+                                                         "local"))
+                x, state = attn(g["global"], x, cached("groups", i,
+                                                       "global"), None)
+                groups.append({"local": states, "global": state})
+            new_cache["groups"] = groups
+            if len(self.tail):
+                new_cache["tail"] = stack(self.tail, local, cached("tail"))
+        elif kind == "hybrid":
+            groups, shared = [], []
+            for i, g in enumerate(self.groups):
+                groups.append(stack(g, ssm, cached("groups", i)))
+                x, state = attn(self.shared, x, cached("shared", i), None)
+                shared.append(state)
+            new_cache.update(groups=groups, shared=shared)
+            if len(self.tail):
+                new_cache["tail"] = stack(self.tail, ssm, cached("tail"))
+        x = L.rmsnorm(self.io["final_norm"], x, cfg.norm_eps)
         return x, (new_cache if serving else None), aux
 
-    @torch.no_grad()
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """Logits (B, T, V) of the full causal forward over tokens (B, T)."""
-        x = self.embed(tokens)
+    def _run(self, inputs: Inputs, cache=None, t=None):
+        x = self.embed(inputs)
         B, T = x.shape[:2]
         positions = torch.arange(T, device=self.device)[None].expand(B, T)
-        x, _, _ = self.backbone(x, positions)
+        return self.backbone(x, positions, cache, t,
+                             self._positions3(inputs))
+
+    @torch.no_grad()
+    def forward(self, inputs: Inputs) -> torch.Tensor:
+        """Logits (B, T, V) (or (B, T, K, V)) of the full causal forward over
+        token ids (B, T) or a batch mapping (``embed``; its ``positions3``
+        for M-RoPE)."""
+        x, _, _ = self._run(inputs)
         return self.unembed(x)
 
     # ------------------------------------------------------------------ loss
     def loss_fn(self, batch: Mapping[str, Any], aux_weight: float = 0.01
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """(loss, {"ce", "aux"}) of ``batch`` ({"tokens", "labels"}, (B, T)
-        integers): the mean cross-entropy of the causal forward, plus
+        """(loss, {"ce", "aux"}) of ``batch`` ({"tokens"} or {"embeds"},
+        integer "labels", and "positions3" for M-RoPE): the mean
+        cross-entropy of the causal forward (over codebooks too), plus
         ``aux_weight`` times the MoE blocks' summed load-balancing loss (0
         without MoE).  Differentiable where grad is enabled."""
-        x = self.embed(torch.as_tensor(batch["tokens"]))
-        B, T = x.shape[:2]
-        positions = torch.arange(T, device=self.device)[None].expand(B, T)
-        x, _, aux = self.backbone(x, positions)
+        x, _, aux = self._run(batch)
         logits = self.unembed(x)
         labels = torch.as_tensor(batch["labels"]).to(self.device)
         ce = softmax_xent(logits, labels)
@@ -393,23 +556,26 @@ class LM(nn.Module):
 
     # --------------------------------------------------------------- serving
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor, cache: Cache
+    def prefill(self, inputs: Inputs, cache: Cache
                 ) -> Tuple[torch.Tensor, Cache]:
-        """Run the prompt (B, T) through the model, writing the cache at
-        positions 0..T-1; the last position's logits (B, 1, V)."""
-        x = self.embed(tokens)
-        B, T = x.shape[:2]
-        positions = torch.arange(T, device=self.device)[None].expand(B, T)
-        x, cache, _ = self.backbone(x, positions, cache, 0)
+        """Run the prompt (token ids, or a batch mapping as ``forward``
+        takes) through the model, writing the cache at positions 0..T-1;
+        the last position's logits (B, 1, V) (or (B, 1, K, V))."""
+        x, cache, _ = self._run(inputs, cache, 0)
         return self.unembed(x[:, -1:]), cache
 
     @torch.no_grad()
     def decode_step(self, cache: Cache, token: torch.Tensor, t: int
                     ) -> Tuple[torch.Tensor, Cache]:
-        """token: (B, 1) at position ``t``; logits (B, 1, V)."""
+        """token: (B, 1) (or (B, 1, K)) at position ``t``, embedded from the
+        token table; M-RoPE takes ``t`` on all three streams.  Logits
+        (B, 1, V) (or (B, 1, K, V))."""
         x = self.embed(token)
-        positions = torch.full((x.shape[0], 1), t, device=self.device)
-        x, cache, _ = self.backbone(x, positions, cache, t)
+        B = x.shape[0]
+        positions = torch.full((B, 1), t, device=self.device)
+        positions3 = (torch.full((3, B, 1), t, device=self.device)
+                      if self.cfg.mrope else None)
+        x, cache, _ = self.backbone(x, positions, cache, t, positions3)
         return self.unembed(x), cache
 
 

@@ -3,25 +3,34 @@
 The JAX package draws its weights with ``jax.random``, which the port cannot
 reproduce, so the port is held to it by loading the very same parameters.
 ``params_from_jax`` takes its parameter pytree as nested dicts of numpy
-arrays, with the per-layer banks stacked on axis 0 (``LM.init``,
-``models/model.py``) and an MoE model's lead blocks in a plain list
-(``params["lead"]``), and builds the port's ``LM`` from it.  bfloat16 leaves
-must be handed over as float32 arrays (``torch.from_numpy`` does not take
-``ml_dtypes.bfloat16``); bf16 -> f32 -> bf16 is exact.
+arrays, laid out as the reference's ``LM.init`` (``models/model.py``) lays
+it out, and builds the port's ``LM`` from it:
+
+* ``blocks``: a bank, every leaf stacked on axis 0 (one row a layer);
+* ``lead``: an MoE model's lead blocks, a plain list;
+* ``groups``: a local_global model's ``{"local": (G, R, ...) bank,
+  "global": (G, ...) bank}``, or a hybrid model's (G, R, ...) bank of SSM
+  layers;
+* ``shared``: a hybrid model's one attention block, unstacked;
+* ``tail``: a bank, or None where the pattern has no tail;
+* the embedding (K, V, d) and head (K, d, V) of K codebooks as they are.
+
+bfloat16 leaves must be handed over as float32 arrays (``torch.from_numpy``
+does not take ``ml_dtypes.bfloat16``); bf16 -> f32 -> bf16 is exact.
 """
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Mapping, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.kernels.device import Device, require_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import LM, check_ported
+from repro_torch.models.model import LAYER_KEYS, LM
 
-# leaves the reference draws in f32 whatever the parameters' dtype (Mamba1's,
-# and the MoE router, ``models/moe.py``)
+# leaves the reference draws in f32 whatever the parameters' dtype (Mamba1's
+# and Mamba2's, and the MoE router, ``models/moe.py``)
 F32_LEAVES = ("dt_bias", "A_log", "D", "router")
 
 
@@ -42,24 +51,40 @@ def _layer(node: Mapping[str, Any], i: int) -> dict:
             else value[i] for name, value in node.items()}
 
 
+def _rows(bank: Optional[Mapping[str, Any]]) -> list:
+    """A bank cut into its rows (none for a missing bank)."""
+    if bank is None:
+        return []
+    return [_layer(bank, i) for i in range(len(next(_leaves(bank))))]
+
+
 def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig,
                     device: Device = "cuda", dtype=torch.bfloat16) -> LM:
     """The port's ``LM`` on ``device`` with the JAX package's parameters
-    ``tree`` (numpy leaves, layer banks stacked on axis 0)."""
-    check_ported(cfg)
+    ``tree`` (numpy leaves, laid out as above); ``ValueError`` where the
+    tree does not hold the config's layers."""
     dev = require_device(device)
-    blocks = tree["blocks"]
-    n = len(next(iter(_leaves(blocks))))
-    n_lead = len(tree.get("lead") or [])
-    if n + n_lead != cfg.n_layers:
-        raise ValueError(f"the banks hold {n} layers and the lead "
-                         f"{n_lead}, {cfg.name} has {cfg.n_layers}")
-    params = _tree({k: v for k, v in tree.items()
-                    if k not in ("blocks", "lead")}, dtype, dev)
-    if "lead" in tree:
-        params["lead"] = [_tree(b, dtype, dev) for b in tree["lead"]]
-    params["blocks"] = [_tree(_layer(blocks, i), dtype, dev)
-                        for i in range(n)]
+
+    def conv(node):
+        return _tree(node, dtype, dev)
+
+    params = conv({k: v for k, v in tree.items() if k not in LAYER_KEYS})
+    if tree.get("lead"):
+        params["lead"] = [conv(b) for b in tree["lead"]]
+    if "blocks" in tree:
+        params["blocks"] = [conv(b) for b in _rows(tree["blocks"])]
+    groups = tree.get("groups")
+    if groups is not None and "local" in groups:          # local_global
+        params["groups"] = [
+            {"local": [conv(b) for b in _rows(g["local"])],
+             "global": conv(g["global"])} for g in _rows(groups)]
+    elif groups is not None:                              # hybrid
+        params["groups"] = [[conv(b) for b in _rows(g)]
+                            for g in _rows(groups)]
+    if "shared" in tree:
+        params["shared"] = conv(tree["shared"])
+    if "tail" in tree:
+        params["tail"] = [conv(b) for b in _rows(tree["tail"])] or None
     return LM(cfg, dtype=dtype, device=dev, params=params)
 
 

@@ -1,13 +1,18 @@
-"""State-space blocks: Mamba1 (the S6 selective scan).
+"""State-space blocks: Mamba1 (the S6 selective scan) and Mamba2 (SSD).
 
-A port of the Mamba1 half of the JAX package's ``models/ssm.py``.  For T > 1
+A port of the JAX package's ``models/ssm.py``.  For Mamba1 at T > 1
 the scan goes to the selective-scan op (B4): the CUDA kernel for tensors on
 the card, its plain version on the CPU; it replaces the reference's chunked
 associative scan, which computes the same recurrence.  Its gradient on the
 card is the op's eager backward (``kernels/mamba_scan/ops.py``).  The single-step
 recurrence of decode stays plain PyTorch.  All scan math is f32; the
-projections run in the parameters' dtype.  Mamba2 (SSD) is not ported yet
-(ROADMAP Queue A, step 7: hybrid).
+projections run in the parameters' dtype.
+
+Mamba2 (zamba2) runs the reference's chunked SSD algorithm as eager
+PyTorch: the reference has no kernel for it either, and its products are
+``torch.einsum`` / matmul calls.  Its x, B and C have depthwise convs of
+their own, while a decode state keeps their trailing inputs concatenated
+as ``x|B|C``, as the reference's does.
 """
 from __future__ import annotations
 
@@ -18,7 +23,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.mamba_scan.ops import selective_scan
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import Params, _dense_init
+from repro_torch.models.layers import (Params, _dense_init, init_rmsnorm,
+                                       rmsnorm)
 
 
 # ------------------------------------------------------------------ conv1d
@@ -115,3 +121,152 @@ def mamba1_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
     new_state = (Mamba1State(new_conv, hT)
                  if (return_state or state is not None) else None)
     return out, new_state
+
+
+# ================================================================== Mamba2
+class Mamba2State(NamedTuple):
+    conv: torch.Tensor   # (B, d_conv-1, conv_dim): x|B|C
+    h: torch.Tensor      # (B, nheads, headdim, d_state) f32
+
+
+def init_mamba2(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
+    s = cfg.ssm
+    d = cfg.d_model
+    d_in = s.expand * d
+    nheads = d_in // s.headdim
+    GN = s.n_groups * s.d_state
+    dev = gen.device
+
+    def zeros(n, dt=dtype):
+        return torch.zeros((n,), dtype=dt, device=dev)
+    return {
+        "in_z": _dense_init(gen, (d, d_in), dtype),
+        "in_x": _dense_init(gen, (d, d_in), dtype),
+        "in_B": _dense_init(gen, (d, GN), dtype),
+        "in_C": _dense_init(gen, (d, GN), dtype),
+        "in_dt": _dense_init(gen, (d, nheads), dtype),
+        "conv_x_w": _dense_init(gen, (s.d_conv, d_in), dtype, scale=0.5),
+        "conv_x_b": zeros(d_in),
+        "conv_B_w": _dense_init(gen, (s.d_conv, GN), dtype, scale=0.5),
+        "conv_B_b": zeros(GN),
+        "conv_C_w": _dense_init(gen, (s.d_conv, GN), dtype, scale=0.5),
+        "conv_C_b": zeros(GN),
+        "dt_bias": zeros(nheads, torch.float32),
+        "A_log": zeros(nheads, torch.float32),             # A = -1
+        "D": torch.ones((nheads,), dtype=torch.float32, device=dev),
+        "norm": init_rmsnorm(d_in, dtype, dev),
+        "out_proj": _dense_init(gen, (d_in, d), dtype),
+    }
+
+
+def _segsum(x: torch.Tensor) -> torch.Tensor:
+    """x: (..., L) -> (..., L, L) lower-triangular cumulative sums,
+    segsum[..., i, j] = sum_{k=j+1..i} x[..., k] (i >= j), -inf above the
+    diagonal."""
+    L = x.shape[-1]
+    cs = torch.cumsum(x, dim=-1)
+    diff = cs[..., :, None] - cs[..., None, :]
+    mask = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device))
+    return torch.where(mask, diff, torch.full((), -torch.inf,
+                                              device=x.device))
+
+
+def _ssd_chunked(xh, dt, B_, C_, A, h0, chunk: int):
+    """The chunked SSD algorithm.  xh: (B, T, H, P) f32; dt: (B, T, H) f32
+    (after softplus); B_, C_: (B, T, G, N) f32; A: (H,) f32 (negative);
+    h0: (B, H, P, N) f32.  Returns (y (B, T, H, P), hT).  Chunk by chunk
+    in order, as the reference's scan: within a chunk the diagonal block
+    from the decay matrix, the carried state's contribution, and the next
+    state."""
+    Bsz, T, H, P = xh.shape
+    G = B_.shape[2]
+    Lc = min(chunk, T)
+    assert T % Lc == 0, (T, Lc)
+    rep = H // G
+    h = h0
+    ys = []
+    for c0 in range(0, T, Lc):
+        x_, dt_ = xh[:, c0:c0 + Lc], dt[:, c0:c0 + Lc]
+        bg = torch.repeat_interleave(B_[:, c0:c0 + Lc], rep, dim=2)
+        cg = torch.repeat_interleave(C_[:, c0:c0 + Lc], rep, dim=2)
+        da = dt_ * A                                       # (B, Lc, H)
+        L = torch.exp(_segsum(da.transpose(1, 2)))         # (B, H, Lc, Lc)
+        scores = torch.einsum("blhn,bshn->bhls", cg, bg)
+        y_diag = torch.einsum("bhls,bsh,bshp->blhp", scores * L, dt_, x_)
+        cum = torch.cumsum(da, dim=1)                      # (B, Lc, H)
+        y_off = torch.einsum("blhn,bhpn->blhp", cg, h) * torch.exp(
+            cum)[..., None]
+        a_tail = torch.exp(cum[:, -1:, :] - cum)           # prod a_{s+1..Lc}
+        S = torch.einsum("bshn,bsh,bshp->bhpn", bg * a_tail[..., None], dt_,
+                         x_)
+        h = h * torch.exp(torch.sum(da, dim=1))[..., None, None] + S
+        ys.append(y_diag + y_off)
+    return torch.cat(ys, dim=1), h
+
+
+def mamba2_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                 state: Optional[Mamba2State] = None,
+                 return_state: bool = False,
+                 ) -> Tuple[torch.Tensor, Optional[Mamba2State]]:
+    """x: (B, T, d).  Forward: state=None.  Prefill: return_state=True.
+    Decode: state given; one token (T == 1) takes the recurrent step, more
+    run the chunked SSD from the state."""
+    s = cfg.ssm
+    B, T, d = x.shape
+    d_in = s.expand * d
+    H = d_in // s.headdim
+    P, G, N = s.headdim, s.n_groups, s.d_state
+
+    z = x @ p["in_z"]
+    xx = x @ p["in_x"]
+    xB = x @ p["in_B"]
+    xC = x @ p["in_C"]
+    dt_raw = (x @ p["in_dt"]).float()
+    cs = state.conv if state is not None else None
+    cs_x = cs[..., :d_in] if cs is not None else None
+    cs_B = cs[..., d_in:d_in + G * N] if cs is not None else None
+    cs_C = cs[..., d_in + G * N:] if cs is not None else None
+    x_c, ncv_x = causal_conv1d(xx, p["conv_x_w"], p["conv_x_b"], cs_x)
+    B_c, ncv_B = causal_conv1d(xB, p["conv_B_w"], p["conv_B_b"], cs_B)
+    C_c, ncv_C = causal_conv1d(xC, p["conv_C_w"], p["conv_C_b"], cs_C)
+    new_conv = torch.cat([ncv_x, ncv_B, ncv_C], dim=-1)
+    xh = F.silu(x_c.float()).reshape(B, T, H, P)
+    B_ = F.silu(B_c.float()).reshape(B, T, G, N)
+    C_ = F.silu(C_c.float()).reshape(B, T, G, N)
+    dt = F.softplus(dt_raw + p["dt_bias"])                 # (B, T, H)
+    # bf16 once an optimizer step has cast A_log, as in the reference,
+    # where dt * A then promotes it
+    A = -torch.exp(p["A_log"])                             # (H,)
+
+    h0 = state.h if state is not None else torch.zeros(
+        (B, H, P, N), dtype=torch.float32, device=x.device)
+    if T == 1 and state is not None:
+        a = torch.exp(dt[:, 0] * A)                        # (B, H)
+        rep = H // G
+        bg = torch.repeat_interleave(B_[:, 0], rep, dim=1)  # (B, H, N)
+        cg = torch.repeat_interleave(C_[:, 0], rep, dim=1)
+        dbx = torch.einsum("bh,bhp,bhn->bhpn", dt[:, 0], xh[:, 0], bg)
+        h = a[..., None, None] * h0 + dbx
+        y = torch.einsum("bhpn,bhn->bhp", h, cg)[:, None]  # (B, 1, H, P)
+        hT = h
+    else:
+        y, hT = _ssd_chunked(xh, dt, B_, C_, A, h0, s.chunk)
+    y = y + p["D"][:, None] * xh
+    y = y.reshape(B, T, d_in)
+    y = y * F.silu(z.float())
+    y = rmsnorm(p["norm"], y.to(x.dtype), cfg.norm_eps)
+    out = y @ p["out_proj"]
+    new_state = (Mamba2State(new_conv, hT)
+                 if (return_state or state is not None) else None)
+    return out, new_state
+
+
+def init_ssm_block(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
+    return (init_mamba1 if cfg.ssm.version == 1 else init_mamba2)(
+        gen, cfg, dtype)
+
+
+def ssm_block(p: Params, cfg: ModelConfig, x: torch.Tensor, state=None,
+              return_state: bool = False):
+    fn = mamba1_block if cfg.ssm.version == 1 else mamba2_block
+    return fn(p, cfg, x, state, return_state)

@@ -12,7 +12,12 @@ tensors, one leaf at a time, and returns them in a new ``AdamWState``: the
 reference's jitted step donates its optimizer state (``donate_argnums`` in
 ``train/loop.py``) for the same reason, so that the old and the new f32
 state are never held at once.  A caller must not read the old state after
-an update.
+an update.  A leaf is updated in slices of at most ``CHUNK`` elements, so
+that the update's f32 temporaries stay small beside a large leaf (a
+262144 x 5376 embedding is 5.6 GB in f32); every operation of the update
+is elementwise, so the slices give the whole leaf's numbers bit for bit.
+The global norm sums a larger leaf's squares slice by slice too, which
+only reorders that leaf's f32 sum.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ import torch
 from repro_torch import tree as T
 
 PyTree = Any
+CHUNK = 1 << 26            # elements of a leaf updated at once
 
 
 class AdamWState(NamedTuple):
@@ -56,8 +62,13 @@ def init(params: PyTree) -> AdamWState:
 
 
 def global_norm(tree: PyTree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in T.leaves(tree)))
+    def sum_sq(x):
+        if x.numel() <= CHUNK:
+            return torch.sum(torch.square(x.float()))
+        x = x.reshape(-1)
+        return sum(torch.sum(torch.square(x[i:i + CHUNK].float()))
+                   for i in range(0, x.numel(), CHUNK))
+    return torch.sqrt(sum(sum_sq(x) for x in T.leaves(tree)))
 
 
 @torch.no_grad()
@@ -72,14 +83,20 @@ def update(grads: PyTree, state: AdamWState, lr: torch.Tensor,
     b2c = 1.0 - cfg.b2 ** step.float()
 
     def upd(g, p, m, v):
-        g = g.float() * scale
-        m.copy_(cfg.b1 * m + (1 - cfg.b1) * g)
-        v.copy_(cfg.b2 * v + (1 - cfg.b2) * g * g)
-        mh = m / b1c
-        vh = v / b2c
-        p.copy_(p - lr * (mh / (torch.sqrt(vh) + cfg.eps)
-                          + cfg.weight_decay * p))
-        return p.to(torch.bfloat16)
+        new = torch.empty(p.shape, dtype=torch.bfloat16, device=p.device)
+        g = g.reshape(-1)
+        flat = [x.view(-1) for x in (p, m, v, new)]
+        for i in range(0, g.numel(), CHUNK):
+            p_, m_, v_, new_ = (x[i:i + CHUNK] for x in flat)
+            g_ = g[i:i + CHUNK].float() * scale
+            m_.copy_(cfg.b1 * m_ + (1 - cfg.b1) * g_)
+            v_.copy_(cfg.b2 * v_ + (1 - cfg.b2) * g_ * g_)
+            mh = m_ / b1c
+            vh = v_ / b2c
+            p_.copy_(p_ - lr * (mh / (torch.sqrt(vh) + cfg.eps)
+                                + cfg.weight_decay * p_))
+            new_.copy_(p_.to(torch.bfloat16))
+        return new
 
     bf16 = [upd(g, p, m, v) for g, p, m, v in zip(
         T.leaves(grads), T.leaves(state.master), T.leaves(state.m),

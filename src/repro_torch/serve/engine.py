@@ -11,6 +11,10 @@ the wave drains the next one is admitted.  The model runs on ``device``
 each ending when its next tokens reach the host (which waits for the
 device), for the serving metrics: prefill time per wave, decode time per
 token.
+
+A config with K codebooks (musicgen) takes prompts (T, K), decodes a
+(B, 1, K) token a step, and returns each step's K ids as a list, as the
+reference does.
 """
 from __future__ import annotations
 
@@ -29,7 +33,7 @@ from repro_torch.models.model import LM
 @dataclass
 class Request:
     rid: int
-    prompt: np.ndarray                  # (T,) int32
+    prompt: np.ndarray                  # (T,) or (T, K) int32
     max_new_tokens: int = 16
     out_tokens: List = field(default_factory=list)
     done: bool = False
@@ -83,7 +87,9 @@ class Engine:
         B = self.B
         lens = [r.prompt.shape[0] for r in wave]
         T = _bucket(max(lens))
-        toks = np.zeros((B, T), np.int32)
+        multik = self.cfg.n_codebooks > 1
+        book = (self.cfg.n_codebooks,) if multik else ()
+        toks = np.zeros((B, T, *book), np.int32)
         for i, r in enumerate(wave):
             toks[i, T - lens[i]:T] = r.prompt     # left-pad
         t0 = time.perf_counter()
@@ -94,10 +100,10 @@ class Engine:
         t = T
         active = {i: r for i, r in enumerate(wave)}
         for i, r in active.items():
-            r.out_tokens.append(int(nxt[i, 0]))
+            r.out_tokens.append(_tok_out(nxt[i], multik))
         finished: List[Request] = []
         while active and t < self.S - 1:
-            cur = np.zeros((B, 1), np.int32)
+            cur = np.zeros((B, 1, *book), np.int32)
             for i, r in active.items():
                 cur[i, 0] = r.out_tokens[-1]
             t0 = time.perf_counter()
@@ -107,7 +113,7 @@ class Engine:
             self.stats["decode_s"].append(time.perf_counter() - t0)
             t += 1
             for i, r in list(active.items()):
-                r.out_tokens.append(int(nxt[i, 0]))
+                r.out_tokens.append(_tok_out(nxt[i], multik))
                 if len(r.out_tokens) >= r.max_new_tokens:
                     r.done = True
                     finished.append(r)
@@ -116,3 +122,7 @@ class Engine:
             r.done = True
             finished.append(r)
         return finished
+
+
+def _tok_out(row: np.ndarray, multik: bool):
+    return [int(v) for v in row] if multik else int(row[0])

@@ -78,8 +78,11 @@ def make_train_step(model: LM, opt_cfg: adamw.AdamWConfig,
     leaves = T.leaves(model.parameter_tree())
 
     def grads_of(batch):
+        # a batch of frontend embeddings leaves the token table unused: its
+        # gradient is zero, as jax.grad gives it
         loss, metrics = model.loss_fn(batch)
-        return loss, metrics["aux"], torch.autograd.grad(loss, leaves)
+        return loss, metrics["aux"], torch.autograd.grad(
+            loss, leaves, allow_unused=True, materialize_grads=True)
 
     def step(opt_state, batch):
         if mb == 1:

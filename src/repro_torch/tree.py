@@ -98,25 +98,36 @@ def _spell(node) -> str:
     return "*"
 
 
-BANK = "blocks"
+# the keys under which the port's parameter trees hold lists of layers that
+# the reference stacks into banks: ``blocks``, ``tail``, a local_global
+# group's ``local``, and ``groups`` (a list of local_global groups, or a
+# hybrid model's list of lists of layers).  An MoE model's ``lead`` blocks
+# are a plain list in the reference too, so they are not stacked.
+BANKS = ("blocks", "groups", "local", "tail")
 
 
 def _is_bank(key, node) -> bool:
-    """The port's per-layer blocks: a list of mappings under ``BANK``.  An
-    MoE model's ``lead`` blocks are a plain list in the reference too, so
-    they are not stacked."""
-    return (key == BANK and isinstance(node, list) and bool(node)
-            and all(isinstance(x, Mapping) for x in node))
+    return (key in BANKS and isinstance(node, list) and bool(node)
+            and all(isinstance(x, (Mapping, list)) for x in node))
+
+
+def _stack_bank(rows: list, stack: Callable[[List[Any]], Any]) -> Tree:
+    """One bank of ``rows`` (layers, or lists of layers for a further
+    axis), each row's own banks stacked first."""
+    rows = [_stack_bank(r, stack) if isinstance(r, list)
+            else stack_layers(r, stack) for r in rows]
+    return tree_map(lambda *xs: stack(list(xs)), *rows)
 
 
 def stack_layers(tree: Tree, stack: Callable[[List[Any]], Any]) -> Tree:
-    """``tree`` with every list of mappings under a ``"blocks"`` key (the
-    port's per-layer blocks) turned into one mapping of leaves stacked on a
-    new axis 0 by ``stack`` (the JAX package's layer banks)."""
+    """``tree`` with every list of layers under a ``BANKS`` key turned into
+    one mapping of leaves stacked on a new axis 0 by ``stack`` (the JAX
+    package's layer banks); a list of lists of layers stacks on two axes,
+    (groups, layers), and a bank inside each layer (a group's ``local``)
+    on an axis after the outer one."""
     if isinstance(tree, Mapping):
-        return {k: tree_map(lambda *xs: stack(list(xs)), *v)
-                if _is_bank(k, v) else stack_layers(v, stack)
-                for k, v in tree.items()}
+        return {k: _stack_bank(v, stack) if _is_bank(k, v)
+                else stack_layers(v, stack) for k, v in tree.items()}
     if _is_namedtuple(tree):
         return type(tree)(*(stack_layers(x, stack) for x in tree))
     if isinstance(tree, (list, tuple)):
@@ -124,14 +135,20 @@ def stack_layers(tree: Tree, stack: Callable[[List[Any]], Any]) -> Tree:
     return tree
 
 
+def _unstack_bank(rows: list, stacked: Tree) -> list:
+    return [_unstack_bank(r, row) if isinstance(r, list)
+            else unstack_layers(r, row)
+            for r, row in ((r, tree_map(lambda s, i=i: s[i], stacked))
+                           for i, r in enumerate(rows))]
+
+
 def unstack_layers(example: Tree, stacked: Tree) -> Tree:
     """The inverse of ``stack_layers``: ``stacked`` cut back into the
-    per-layer lists of ``example`` (row ``i`` of each bank is layer
-    ``i``)."""
+    per-layer lists of ``example`` (row ``i`` of each bank is layer, or
+    group, ``i``)."""
     if isinstance(example, Mapping):
-        return {k: [tree_map(lambda s, i=i: s[i], stacked[k])
-                    for i in range(len(v))]
-                if _is_bank(k, v) else unstack_layers(v, stacked[k])
+        return {k: _unstack_bank(v, stacked[k]) if _is_bank(k, v)
+                else unstack_layers(v, stacked[k])
                 for k, v in example.items()}
     if _is_namedtuple(example):
         return type(example)(*(unstack_layers(x, s)
@@ -140,4 +157,3 @@ def unstack_layers(example: Tree, stacked: Tree) -> Tree:
         return type(example)(unstack_layers(x, s)
                              for x, s in zip(example, stacked))
     return stacked
-

@@ -31,6 +31,7 @@ from repro.configs import shape_applicable as j_shape_applicable
 from repro.models.config import param_count as j_param_count
 from repro.models.model import LM as JLM
 from repro.models.model import derive_pattern as j_derive_pattern
+from repro_torch import tree
 from repro_torch.configs import ARCH_IDS, SHAPES, get_config, shape_applicable
 from repro_torch.models import model as M
 from repro_torch.models.config import param_count
@@ -38,7 +39,8 @@ from repro_torch.models.params import F32_LEAVES, params_from_jax
 
 PORTED = ["smollm-135m", "qwen3-14b", "falcon-mamba-7b"]
 MOE = ["deepseek-v2-lite-16b", "qwen3-moe-30b-a3b"]     # tests/test_torch_moe.py
-UNPORTED = ["zamba2-1.2b", "gemma3-27b", "qwen2-vl-7b", "musicgen-large"]
+# tests/test_torch_families.py, tests/test_torch_families_train.py
+FAMILIES = ["zamba2-1.2b", "gemma3-27b", "qwen2-vl-7b", "musicgen-large"]
 DTYPES = {"f32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
 B, T, K = 2, 32, 4          # batch, sequence, decode steps after the prefill
@@ -170,7 +172,8 @@ def test_registry_equals_reference():
                                                                        shape)
 
 
-@pytest.mark.parametrize("arch", PORTED + ["starcoder2-15b"] + MOE)
+@pytest.mark.parametrize("arch", PORTED + ["starcoder2-15b"] + MOE
+                         + FAMILIES)
 def test_port_init_matches_reference_shapes(arch):
     """The port's own seeded init has the reference's leaves: the same
     count per parameter, the same dtypes (bf16, with the f32 leaves kept
@@ -192,10 +195,29 @@ def test_port_init_matches_reference_shapes(arch):
                                                  again.parameters()))
 
 
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_patterns_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M.LM(get_config(arch).smoke(), device="cpu")
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_every_pattern_builds_and_serves(arch):
+    """The four patterns and options the port once refused (local_global,
+    hybrid with Mamba2, M-RoPE with frontend embeddings, codebooks) build
+    from the port's own init with the reference's tree, stacked as its
+    banks, and serve a prefill and a decode step to finite logits of the
+    reference's shape."""
+    cfg = get_config(arch).smoke()
+    tlm = M.LM(cfg, device="cpu", seed=1)
+    jparams = jax.eval_shape(JLM(jget_config(arch).smoke(), remat=False).init,
+                             jax.random.PRNGKey(0))
+    banks = tree.stack_layers(tlm.params(), torch.stack)
+    assert tree.treedef_token(banks) == str(jax.tree_util.tree_structure(
+        jparams))
+    assert [tuple(x.shape) for x in tree.leaves(banks)] == [
+        x.shape for x in jax.tree_util.tree_leaves(jparams)]
+    book = (cfg.n_codebooks,) if cfg.n_codebooks > 1 else ()
+    toks = torch.randint(0, cfg.vocab_size, (2, 8, *book),
+                         generator=torch.Generator().manual_seed(0))
+    logits, cache = tlm.prefill(toks, tlm.init_cache(2, 12))
+    logits, cache = tlm.decode_step(cache, toks[:, -1:], 8)
+    assert logits.shape == (2, 1, *book, cfg.vocab_size)
+    assert bool(torch.isfinite(logits.float()).all())
 
 
 def test_cuda_device_without_cuda_raises():
