@@ -124,13 +124,40 @@ it fails, and each of which prints its wall time:
    a list.  Step ms, tokens/s, forward+backward and AdamW ms, peak memory,
    checkpoint GB/s.
 
-Each main path (phases 3, 6, 9, 10, 12 and 13) is driven with every
-kernel's launch count set to 0 just before it and read just after.  It
-prints one ``{"kernels": [...]}`` JSON line, each kernel's ``launches``
-from its serving or replication path, ``launches_training`` from phase 10
-and the MoE paths' launches (``launches_moe_serve``,
-``launches_moe_training``), and, last, the result line ``{"ok": true,
-"device": {...}}``.  It imports neither JAX nor the JAX package.
+14. The last four families served at their published configs through
+   phase 9's function: gemma3-27b (prompts of 1030-2000 tokens, its ring
+   caches wrapping), zamba2-1.2b, qwen2-vl-7b (also an M-RoPE prefill of
+   frontend embeddings) and musicgen-large; B3 launches ``==`` a wave's
+   attention calls.
+15. The same four trained 3 steps with remat (``FAMILY_TRAIN_CUTS``), B3
+   launches ``==``, zamba2-1.2b's checkpoint hashed by B1 at its save and
+   restore.
+16. The sharded path, on a world-size-1 NCCL group and a 1 x 1 ("data",
+   "model") ``DeviceMesh`` on the card: the relay, naive and ring
+   collectives return x and ``psum_compressed`` goes through NCCL's
+   all-gather to ``dequantize(quantize(x))`` bit for bit; smollm-135m (30
+   layers) and falcon-mamba-7b (4 layers) prefill 4 x 256 tokens through
+   ``dryrun.build_prefill_step`` with bf16 weights placed by
+   ``load_for_mesh`` and ``param_specs``: B3 ``==`` 30 and B4 ``==`` 4
+   launches on the local shards, logits bit-equal to the unsharded
+   prefill's;
+   two ``build_train_step`` steps of smollm-135m at 2 x 1024 tokens with
+   ZeRO-1 state, params equal to two unsharded steps', B3 ``==`` 120; an
+   elastic restore hashed by B1 (``==`` the files' 4 MiB reads) and placed
+   by ``load_for_mesh``, gathered back bit for bit; the dry run of
+   smollm-135m train_4k on a fake 8 x 8 mesh in a subprocess (bytes,
+   FLOPs, collectives).  The phase must take less than 90 s.
+
+Each main path (phases 3, 6, 9, 10, 12, 13, 14, 15 and 16) is driven with
+every kernel's launch count set to 0 just before it and read just after.
+It prints one ``{"kernels": [...]}`` JSON line, each kernel's ``launches``
+from its serving or replication path, ``launches_training`` from phase 10,
+the MoE and family paths' launches (``launches_moe_serve``,
+``launches_moe_training``, ``launches_family_serve``,
+``launches_family_training``) and the sharded path's
+(``launches_sharded`` of B3 and B4, ``launches_elastic`` of B1), and,
+last, the result line ``{"ok": true, "device": {...}}``.  It imports
+neither JAX nor the JAX package.
 """
 from __future__ import annotations
 
@@ -2321,6 +2348,266 @@ def phase_train_archs(torch, get_config, LM, loop, adamw, kernels, flash,
     return out
 
 
+# ---------------------------------------------------------------- phase 16
+SHARDED_MESH = {"data": 1, "model": 1}
+SHARDED_PREFILL = (4, 256)                     # sequences, tokens
+SHARDED_ARCHS = (("smollm-135m", 0, "flash", 30),
+                 ("falcon-mamba-7b", MAMBA_TRAIN_LAYERS, "scan", 4))
+SHARDED_TRAIN = dict(steps=2, batch=2, seq=1024)
+SHARDED_BUDGET_S = 90.0
+DRYRUN_CELL = ["--arch", "smollm-135m", "--shape", "train_4k",
+               "--mesh", "data=8,model=8", "--microbatches", "2"]
+
+
+def phase_sharded(torch, get_config, LM, kernels, checksum, flash, scan,
+                  chunk_bytes: int, card: str) -> dict:
+    """The sharded path on a world-size-1 NCCL group and a 1x1 ("data",
+    "model") mesh on the card: the relay and compressed collectives; the
+    sharded prefill of smollm-135m (all 30 layers) and falcon-mamba-7b (4)
+    through ``build_prefill_step`` with B3 / B4 launched on the local
+    shards, bit-equal to the unsharded prefill; two sharded ``build_train_step``
+    steps of smollm-135m with ZeRO-1 state, held to two unsharded steps;
+    an elastic restore hashed by B1 and placed by ``load_for_mesh``; and
+    the dry run of one full-size cell on a fake 8 x 8 mesh, in a
+    subprocess."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.checkpoint.ckpt import restore_checkpoint, \
+        save_checkpoint
+    from repro_torch.checkpoint.elastic import load_for_mesh
+    from repro_torch.core import relay_collectives as RC
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import shardings as SH
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import axes as AX
+    from repro_torch.models.axes import logical_axis_rules
+    from repro_torch.optim import adamw
+    from repro_torch.optim import grad_compress as GC
+    from repro_torch.tree import leaves, tree_map
+
+    tmp = tempfile.mkdtemp(prefix="repro_torch_sharded_")
+    # NCCL or nothing: a failed init raises, and nothing runs on gloo
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                            rank=0, world_size=1,
+                            device_id=torch.device(DEVICE, 0))
+    out = {"card": card, "mesh": SHARDED_MESH, "backend": dist.get_backend()}
+    try:
+        check(out["backend"] == "nccl", f"backend {out['backend']}")
+        mesh = make_mesh(SHARDED_MESH, DEVICE)
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+
+        def place(x, *spec):
+            return distribute_tensor(x, mesh, AX.placements(AX.Spec(*spec),
+                                                            mesh))
+
+        # -- the collectives: at size 1 relay, naive and ring return x
+        x = torch.randn((64, 1024), generator=gen, device=DEVICE)
+        for name, fn in (
+                ("relay", lambda: RC.relay_broadcast_inner(x, None, 0, 4)),
+                ("relay_mesh", lambda: RC.relay_broadcast(x, mesh, "data")),
+                ("naive", lambda: RC.naive_broadcast_inner(x)),
+                ("ring", lambda: RC.ring_all_gather_inner(x))):
+            check(fn() is x, f"[16] {name} at size 1 did not return x")
+        gathered, real = [], dist.all_gather_into_tensor
+
+        def counting(out_t, in_t, *a, **kw):
+            gathered.append(str(in_t.dtype))
+            return real(out_t, in_t, *a, **kw)
+        dist.all_gather_into_tensor = counting
+        try:
+            got = GC.psum_compressed(x)
+        finally:
+            dist.all_gather_into_tensor = real
+        q, s = GC.quantize_int8(x)
+        check(gathered == ["torch.int8", "torch.float32"],
+              f"[16] psum_compressed gathered {gathered}")
+        check(torch.equal(got, GC.dequantize_int8(q, s)),
+              "[16] psum_compressed != dequantize(quantize(x))")
+        out["collectives"] = {"relay_naive_ring": "x at size 1",
+                              "psum_compressed_gathers": gathered}
+        log(f"[16] collectives on NCCL: relay/naive/ring return x, "
+            f"psum_compressed gathered {gathered} and equals "
+            f"dequantize(quantize(x))")
+
+        def sharded(cfg, params, remat):
+            specs = SH.layer_param_specs(params, cfg, mesh)
+            return LM(cfg, device=DEVICE, params=load_for_mesh(
+                params, mesh, specs), remat=remat), specs
+
+        def clone(tree):
+            return tree_map(lambda t: t.clone(), tree)
+
+        # -- sharded prefill, B3 / B4 on the local shards
+        B, T_ = SHARDED_PREFILL
+        out["prefill"] = {}
+        for arch, n_layers, kname, want in SHARDED_ARCHS:
+            cfg = get_config(arch)
+            if n_layers:
+                cfg = cfg.with_(n_layers=n_layers)
+            plain = LM(cfg, device=DEVICE, seed=SEED, remat=False)
+            model, _ = sharded(cfg, clone(plain.params()), False)
+            rules = SH.logical_rules(mesh, B, cfg)
+            toks = torch.randint(0, cfg.vocab_size, (B, T_), generator=gen,
+                                 device=DEVICE)
+            dtoks = place(toks, rules["batch"], None)
+            cache = plain.init_cache(B, T_)
+            dcache = load_for_mesh(model.init_cache(B, T_), mesh,
+                                   SH.cache_specs(cache, B, T_, mesh,
+                                                  rules["batch"]))
+
+            def run_sharded():          # a prefill from 0 rewrites a cache
+                with logical_axis_rules(mesh, rules):
+                    return dryrun.build_prefill_step(model, mesh)(
+                        model.params(), dtoks, dcache)[0]
+
+            def run_plain():
+                return dryrun.build_prefill_step(plain)(
+                    plain.params(), toks, cache)[0]
+            for k in kernels:
+                k.launches = 0                               # path starts
+            logits = run_sharded()
+            torch.cuda.synchronize()
+            launches = {"flash": flash.launches, "scan": scan.launches}
+            check(launches[kname] == want and sum(launches.values()) == want,
+                  f"[16] {arch}: sharded prefill launched {launches}, want "
+                  f"{want} of {kname}")                      # path ends
+            ref = run_plain()
+            got = logits.full_tensor()
+            err = (got.float() - ref.float()).abs().max().item()
+            # a 1 x 1 mesh runs the same kernels on the same data: the
+            # sharded logits must be the unsharded ones, bit for bit
+            check(torch.equal(got, ref), f"[16] {arch}: sharded prefill "
+                  f"differs from the unsharded one, max err {err}")
+            ms = host_ms(torch, run_sharded, 3, warmup=1)
+            plain_ms = host_ms(torch, run_plain, 3, warmup=1)
+            out["prefill"][arch] = {
+                "layers": cfg.n_layers, "batch": B, "tokens": T_,
+                "launches": launches, "max_abs_err": err,
+                "sharded_ms": ms, "plain_ms": plain_ms}
+            log(f"[16] {arch} ({cfg.n_layers} layers) sharded prefill "
+                f"{B}x{T_}: {kname} launches {launches[kname]}, bit equal "
+                f"to unsharded (max err {err}), {ms:.2f} ms sharded "
+                f"vs {plain_ms:.2f} ms unsharded [{card}]")
+            del plain, model, logits, ref, got, cache, dcache
+            torch.cuda.empty_cache()
+
+        # -- sharded training, ZeRO-1 state, against the unsharded steps
+        cfg = get_config("smollm-135m")
+        tr = SHARDED_TRAIN
+        plain = LM(cfg, device=DEVICE, seed=SEED, remat=True)
+        model, pspecs = sharded(cfg, clone(plain.params()), True)
+        plain.requires_grad_(True)
+        model.requires_grad_(True)
+        rules = SH.logical_rules(mesh, tr["batch"], cfg)
+        batches = [{k: torch.randint(0, cfg.vocab_size,
+                                     (tr["batch"], tr["seq"]), generator=gen,
+                                     device=DEVICE)
+                    for k in ("tokens", "labels")}
+                   for _ in range(tr["steps"])]
+        opt_p = adamw.init(plain.params())
+        opt_s = dryrun.place_opt_state(
+            adamw.init(model.params()), mesh,
+            SH.layer_opt_specs(model.params(), cfg, mesh))
+        step_p = dryrun.build_train_step(plain)
+        step_s = dryrun.build_train_step(model, 1, mesh, pspecs)
+        plain_ms, losses_p = [], []
+        for b in batches:
+            t = time.perf_counter()
+            params_p, opt_p, loss = step_p(plain.params(), opt_p, b)
+            torch.cuda.synchronize()
+            plain_ms.append((time.perf_counter() - t) * 1e3)
+            losses_p.append(loss.item())
+        for k in kernels:
+            k.launches = 0                                   # path starts
+        step_ms, losses_s = [], []
+        with logical_axis_rules(mesh, rules):
+            for b in batches:
+                db = {k: place(v, rules["batch"], None) for k, v in b.items()}
+                t = time.perf_counter()
+                params_s, opt_s, loss = step_s(model.params(), opt_s, db)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t) * 1e3)
+                losses_s.append(loss.full_tensor().item())
+        launches = {"flash": flash.launches, "scan": scan.launches,
+                    "checksum": checksum.launches}           # path ends
+        want = cfg.n_layers * tr["steps"] * 2
+        check(launches == {"flash": want, "scan": 0, "checksum": 0},
+              f"[16] sharded training launched {launches}, want {want} B3")
+        diffs = [(a.full_tensor().float() - b.float()).abs().max().item()
+                 for a, b in zip(leaves((params_s, opt_s.master)),
+                                 leaves((params_p, opt_p.master)))]
+        train_err = max(diffs)
+        check(train_err == 0.0 and losses_s == losses_p,
+              f"[16] sharded steps differ from the unsharded: params and "
+              f"master max err {train_err}, losses {losses_s} vs "
+              f"{losses_p}")
+        out["train"] = {"config": "smollm-135m, 30 layers, bf16, remat, "
+                                  "AdamW with ZeRO-1 state placements",
+                        **tr, "launches": launches, "losses": losses_s,
+                        "max_abs_err": train_err, "step_ms": step_ms,
+                        "plain_step_ms": plain_ms}
+        log(f"[16] smollm-135m sharded training, {tr['steps']} steps of "
+            f"{tr['batch']}x{tr['seq']}: B3 launches {launches['flash']}, "
+            f"params and master equal to the unsharded steps (max err "
+            f"{train_err}), losses {losses_s}, step ms {step_ms} sharded vs "
+            f"{plain_ms} unsharded [{card}]")
+
+        # -- elastic restore: hashed by B1 on the card, placed on the mesh
+        tree = plain.params()
+        d = save_checkpoint(os.path.join(tmp, "ckpts"), tr["steps"], tree,
+                            device=DEVICE)
+        per = ckpt_hash_launches(d, chunk_bytes)
+        for k in kernels:
+            k.launches = 0                                   # path starts
+        t = time.perf_counter()
+        got = restore_checkpoint(os.path.join(tmp, "ckpts"), tree,
+                                 device=DEVICE)
+        check(got is not None, "[16] no checkpoint restored")
+        placed = load_for_mesh(got[1], mesh, SH.layer_param_specs(
+            got[1], cfg, mesh))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+        launches = {"checksum": checksum.launches, "flash": flash.launches,
+                    "scan": scan.launches}                   # path ends
+        check(launches == {"checksum": per["scan"], "flash": 0, "scan": 0},
+              f"[16] elastic restore launched {launches}, want "
+              f"{per['scan']} B1")
+        for a, b in zip(leaves(placed), leaves(tree)):
+            check(a.full_tensor().dtype == b.dtype
+                  and torch.equal(a.full_tensor(), b),
+                  "[16] the placed restore differs from the saved arrays")
+        out["elastic"] = {"launches": launches["checksum"],
+                          "bytes": per["bytes"], "restore_s": restore_s}
+        log(f"[16] elastic restore of {per['bytes']} bytes: B1 launches "
+            f"{launches['checksum']} (== the files' 4 MiB reads), placed "
+            f"and gathered back bit for bit in {restore_s:.3f} s")
+    finally:
+        dist.destroy_process_group()
+
+    # -- the dry run of a full-size cell on a fake 8 x 8 mesh
+    rec_path = os.path.join(tmp, "dryrun.json")
+    t = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
+                        *DRYRUN_CELL, "--out", rec_path],
+                       env=dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                                CUDA_VISIBLE_DEVICES=""),
+                       capture_output=True, text=True, timeout=300)
+    check(r.returncode == 0, f"[16] dry run failed: {r.stderr[-2000:]}")
+    with open(rec_path) as f:
+        rec = json.load(f)
+    check(rec["ok"] and rec["flops"] > 0 and rec["collectives"],
+          f"[16] dry run: {rec}")
+    out["dryrun"] = {k: rec[k] for k in ("arch", "shape", "mesh",
+                                         "microbatches", "memory", "flops",
+                                         "model_flops", "collectives")}
+    out["dryrun"]["wall_s"] = time.perf_counter() - t
+    log(f"[16] dry run {' '.join(DRYRUN_CELL)}: {json.dumps(out['dryrun'])}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+
 def main() -> None:
     # one allocator pool that grows in place: phase 15's gemma3 step peaks
     # at ~71 GB of the card's 79, and a pool fragmented into fixed segments
@@ -2455,6 +2742,22 @@ def main() -> None:
         for a, r in family_trained.items()}
     entry["launches_family_training"] = {
         a: r["launches"]["checksum"] for a, r in family_trained.items()}
+    shard = timed(16, phase_sharded, torch, get_config, LM, kernels, kernel,
+                  flash, scan, _CHUNK_BYTES, card)
+    log(f"[16] sharded path: phase wall {walls[16]:.1f} s of "
+        f"{SHARDED_BUDGET_S:.0f} [{card}]")
+    check(walls[16] < SHARDED_BUDGET_S,
+          f"[16] took {walls[16]:.1f} s, beyond {SHARDED_BUDGET_S} s")
+    # the sharded path's launches: B3 / B4 on the local shards of the
+    # prefills and the training steps, B1 under the elastic restore
+    flash_entry["launches_sharded"] = {
+        "smollm-135m prefill": shard["prefill"]["smollm-135m"]["launches"][
+            "flash"], "smollm-135m training": shard["train"]["launches"][
+            "flash"]}
+    scan_entry["launches_sharded"] = {
+        "falcon-mamba-7b prefill": shard["prefill"]["falcon-mamba-7b"][
+            "launches"]["scan"]}
+    entry["launches_elastic"] = shard["elastic"]["launches"]
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "repro"))
     check(not leaked, f"JAX-side modules were imported: {leaked}")

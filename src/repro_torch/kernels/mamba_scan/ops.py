@@ -3,7 +3,14 @@
 ``selective_scan`` dispatches on the device its tensors lie on: CUDA tensors
 go to the kernel (``mamba_scan.selective_scan_cuda``) or raise, CPU tensors
 to the plain PyTorch version (``ref.selective_scan_torch``), which autograd
-differentiates natively.  Nothing falls back from one to the other.  The
+differentiates natively.  Nothing falls back from one to the other; meta
+tensors (the dry run's shapes) get outputs of the right shapes, with no
+work counted: the plain version's walk over T would take the dry run
+minutes, and its products are elementwise, which ``FlopCounterMode`` does
+not count anyway.  DTensors
+run this op on their local shards (``_sharded``, through
+``kernels/local.py``), or raise where their placements do not split the
+scan into whole ones.  The
 kernel masks the ragged T and D itself, so the JAX wrapper's padding to
 (128, 256) blocks has no counterpart here.
 
@@ -21,6 +28,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.kernels import local
 from repro_torch.kernels.mamba_scan.mamba_scan import selective_scan_cuda
 from repro_torch.kernels.mamba_scan.ref import selective_scan_torch
 
@@ -76,10 +84,30 @@ def selective_scan(u: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
     """u, dt: (B, T, D); Bm, Cm: (B, T, N); A: (D, N); h0: (B, D, N); all
     f32.  Returns (y (B, T, D), hT (B, D, N))."""
     ins = (u, dt, Bm, Cm, A, h0)
+    if local.is_dtensor(u):
+        return _sharded(*ins)
     if u.device.type == "cuda":
         if torch.is_grad_enabled() and any(x.requires_grad for x in ins):
             return SelectiveScan.apply(*ins)
         return selective_scan_cuda(*ins)
+    if u.device.type == "meta":
+        return torch.empty_like(u), torch.empty_like(h0)
     if u.device.type != "cpu":
         raise ValueError(f"no selective scan for {u.device}")
     return selective_scan_torch(*ins)
+
+
+# on one mesh dim, the placements of (u, dt, Bm, Cm, A, h0) that split the
+# scan into whole ones: batch rows, or channels (the recurrence is
+# independent per channel; B and C are read by every channel)
+_SCAN_SPLITS = (("R",) * 6,
+                ("S0", "S0", "S0", "S0", "R", "S0"),
+                ("S2", "S2", "R", "R", "S0", "S1"))
+
+
+def _sharded(*ins):
+    """DTensor inputs: this op on every rank's shard, or ``ValueError``
+    where a mesh dim splits them otherwise than ``_SCAN_SPLITS``."""
+    local.check("selective_scan", ins, _SCAN_SPLITS,
+                "batch- or channel-sharded")
+    return local.run_local(selective_scan, ins, (ins[0], ins[5]))

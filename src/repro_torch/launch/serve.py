@@ -7,7 +7,10 @@
 The flags are the JAX package's launcher's, plus ``--device`` (default
 ``cuda``; ``cpu`` runs the kernels' plain versions).  Weights are drawn from
 ``--seed`` by the port's own init; ``--smoke`` (the default) serves the
-reduced config, ``--full`` the published one.  ``--ckpt-dir`` loads the
+reduced config, ``--full`` the published one.  ``--arch`` takes all ten
+configs: smollm-135m, qwen3-14b, starcoder2-15b, qwen2-vl-7b,
+musicgen-large, qwen3-moe-30b-a3b, deepseek-v2-lite-16b, falcon-mamba-7b,
+gemma3-27b and zamba2-1.2b.  ``--ckpt-dir`` loads the
 latest verified checkpoint into ``{"params": ...}`` (falling back to the
 init where there is none), as the reference does: a checkpoint of either
 package that holds params alone.  A training checkpoint (params and

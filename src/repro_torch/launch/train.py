@@ -10,8 +10,10 @@ The flags are the JAX package's launcher's, plus ``--device`` (default
 versions).  It drives the fault-tolerant loop on one device.
 ``--replicate-to`` turns on cross-site checkpoint replication via the
 paper's scheduler (sites are sibling directories of the checkpoint root).
-``--arch`` takes the ported patterns: the dense GQA models, the MoE models
-(``qwen3-moe-30b-a3b``, ``deepseek-v2-lite-16b`` with MLA) and Mamba1; the
+``--arch`` takes all ten configs: smollm-135m, qwen3-14b, starcoder2-15b,
+qwen2-vl-7b and musicgen-large (dense GQA), qwen3-moe-30b-a3b and
+deepseek-v2-lite-16b (MoE, the latter with MLA), falcon-mamba-7b (Mamba1),
+gemma3-27b (local/global attention) and zamba2-1.2b (Mamba2 hybrid); the
 loop logs the MoE load-balancing loss (``aux``) beside the loss.
 """
 from __future__ import annotations

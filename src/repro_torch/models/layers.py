@@ -38,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.models.axes import constrain
 from repro_torch.models.config import MLAConfig, ModelConfig
 
 Params = Mapping[str, torch.Tensor]
@@ -45,13 +46,20 @@ NEG_INF = -1e30
 
 
 # --------------------------------------------------------------------------- init
+class MetaGenerator:
+    """Stands in for a ``torch.Generator`` on the meta device, which has
+    none: an init then makes meta tensors of the parameters' shapes and
+    dtypes (the dry run's), and draws nothing."""
+    device = torch.device("meta")
+
+
 def _dense_init(gen: torch.Generator, shape, dtype,
                 scale: Optional[float] = None) -> torch.Tensor:
     """Normal(0, scale^2) drawn in f32 on the generator's device, 1/sqrt(fan
     in) by default, cast to ``dtype``."""
     scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
-    w = torch.randn(shape, generator=gen, device=gen.device,
-                    dtype=torch.float32)
+    w = torch.randn(shape, device=gen.device, dtype=torch.float32,
+                    generator=None if isinstance(gen, MetaGenerator) else gen)
     return (w * scale).to(dtype)
 
 
@@ -96,7 +104,8 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
     freqs = rope_freqs(hd, theta, x.device)                     # (hd/2,)
     sec_id = torch.repeat_interleave(
         torch.arange(3, device=x.device),
-        torch.tensor(sections, device=x.device))                # (hd/2,)
+        torch.tensor(sections, device=x.device),
+        output_size=hd // 2)                                    # (hd/2,)
     pos = positions3.to(x.device).float()[sec_id]               # (hd/2, B, T)
     ang = pos.permute(1, 2, 0) * freqs                          # (B, T, hd/2)
     cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
@@ -185,9 +194,21 @@ def attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
     M-RoPE where the config has it."""
     B, T, _ = x.shape
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ p["wq"]).reshape(B, T, H, hd)
-    k = (x @ p["wk"]).reshape(B, T, Hkv, hd)
-    v = (x @ p["wv"]).reshape(B, T, Hkv, hd)
+
+    # under sharding rules, heads stay split over "model" through rope and
+    # attention where the rules' head gate is on, else the projections are
+    # replicated there before they are cut into heads (a split of H * hd
+    # that is not one of whole heads cannot be viewed as heads); past the
+    # cut, single-token decode keeps the cache's layout, as in the reference
+    def _maybe(t, names):
+        return constrain(t, names) if T > 1 else t
+
+    def heads(w, n, name):
+        y = constrain(x @ w, ("batch", "seq", name)).reshape(B, T, n, hd)
+        return _maybe(y, ("batch", "seq", name, None))
+    q = heads(p["wq"], H, "heads")
+    k = heads(p["wk"], Hkv, "kv")
+    v = heads(p["wv"], Hkv, "kv")
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
         k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
@@ -242,8 +263,10 @@ def attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
             # queries and keys both at arange(T), gives the reference's
             # result; it goes to the flash-attention op, reading the cache
             # slice through its strides.
-            ck = cache.k[:, :T].to(q.dtype)
-            cv = cache.v[:, :T].to(q.dtype)
+            ck = _maybe(cache.k[:, :T].to(q.dtype),
+                        ("batch", "seq", "kv", None))
+            cv = _maybe(cache.v[:, :T].to(q.dtype),
+                        ("batch", "seq", "kv", None))
             out = sdpa(q, ck, cv, None, None, window, prefix=True)
         else:
             k_pos = torch.arange(S, device=x.device)[None].expand(B, S)

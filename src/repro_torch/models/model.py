@@ -49,6 +49,7 @@ f32.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, List, Mapping, NamedTuple, Optional, Tuple, \
     Union
 
@@ -58,7 +59,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree as T
 from repro_torch.kernels.device import Device, require_device
+from repro_torch.kernels.local import is_dtensor
 from repro_torch.models import layers as L
+from repro_torch.models.axes import constrain
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.config import ModelConfig
@@ -174,7 +177,7 @@ class AttnBlock(ParamTree):
             f, aux = MOE.moe_forward(self["moe"], cfg, h)
         else:
             f, aux = L.mlp(self["mlp"], h), None
-        return x + f, new_cache, aux
+        return constrain(x + f, ("batch", "seq", None)), new_cache, aux
 
 
 def init_ssm_layer(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
@@ -193,7 +196,7 @@ class SSMLayer(ParamTree):
         h = L.rmsnorm(self["ln"], x, self.cfg.norm_eps)
         y, new_state = SSM.ssm_block(self["ssm"], self.cfg, h, state,
                                      return_state)
-        return x + y, new_state
+        return constrain(x + y, ("batch", "seq", None)), new_state
 
 
 # ======================================================================== model
@@ -260,9 +263,11 @@ class LM(nn.Module):
     def init(self, seed: int) -> dict:
         """A parameter tree drawn from ``torch.Generator(device)`` seeded
         with ``seed``: the reference's shapes, dtypes and scales, not its
-        numbers (``jax.random`` draws others)."""
+        numbers (``jax.random`` draws others).  On the meta device, the
+        shapes and dtypes alone."""
         cfg, dtype, pat = self.cfg, self.dtype, self.pattern
-        gen = torch.Generator(device=self.device).manual_seed(seed)
+        gen = (L.MetaGenerator() if self.device.type == "meta" else
+               torch.Generator(device=self.device).manual_seed(seed))
         K = cfg.n_codebooks
         books = (K,) if K > 1 else ()
         p: Dict[str, Any] = {
@@ -337,7 +342,9 @@ class LM(nn.Module):
         """Make ``params`` (a tree of ``params``' structure) the model's
         parameters, each leaf moved to the device in its own dtype: the
         optimizer's new params are bf16 whatever the model's dtype, as in
-        the reference."""
+        the reference.  A DTensor parameter keeps its placements: the new
+        leaf is redistributed to them (``set_param``)."""
+        from torch.distributed.tensor import DTensor
         got, want = T.leaves(params), T.leaves(self.parameter_tree())
         if len(got) != len(want):
             raise ValueError(f"{len(got)} leaves for a model of "
@@ -346,7 +353,10 @@ class LM(nn.Module):
             if tuple(new.shape) != tuple(p.shape):
                 raise ValueError(f"a leaf of shape {tuple(new.shape)} for a "
                                  f"parameter of {tuple(p.shape)}")
-            p.data = new.to(self.device)
+            if isinstance(p, DTensor):
+                set_param(p, new.redistribute(p.device_mesh, p.placements))
+            else:
+                p.data = new.to(self.device)
 
     # ----------------------------------------------------------------- cache
     def _attn_cache(self, batch: int, max_seq: int):
@@ -420,12 +430,14 @@ class LM(nn.Module):
                                                        self.dtype)
         tokens = torch.as_tensor(batch["tokens"]).to(self.device, torch.long)
         table = self.io["embed"]
+        look = _sharded_lookup if is_dtensor(table) else \
+            (lambda t, ids: t[ids])
         if cfg.n_codebooks > 1:
-            x = table[0][tokens[..., 0]]
+            x = look(table[0], tokens[..., 0])
             for k in range(1, cfg.n_codebooks):
-                x = x + table[k][tokens[..., k]]
+                x = x + look(table[k], tokens[..., k])
             return x
-        return table[tokens]
+        return look(table, tokens)
 
     def unembed(self, x: torch.Tensor) -> torch.Tensor:
         """Logits (B, T, V), or (B, T, K, V) for K codebooks."""
@@ -525,7 +537,7 @@ class LM(nn.Module):
         return x, (new_cache if serving else None), aux
 
     def _run(self, inputs: Inputs, cache=None, t=None):
-        x = self.embed(inputs)
+        x = constrain(self.embed(inputs), ("batch", "seq", None))
         B, T = x.shape[:2]
         positions = torch.arange(T, device=self.device)[None].expand(B, T)
         return self.backbone(x, positions, cache, t,
@@ -579,14 +591,72 @@ class LM(nn.Module):
         return self.unembed(x), cache
 
 
+def set_param(p: nn.Parameter, new: torch.Tensor) -> None:
+    """Make ``new`` the value of the parameter ``p`` (which stays the
+    module's object, and keeps ``requires_grad``).  ``p.data = new`` does
+    so for a plain tensor; a DTensor parameter keeps its old local shard
+    under that assignment, so its contents are swapped instead."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(p, DTensor):
+        p.data = new
+        return
+    with torch.no_grad():
+        torch.utils.swap_tensors(p, nn.Parameter(new.detach(),
+                                                 requires_grad=p.requires_grad))
+
+
+def _sharded_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Rows ``ids`` of a DTensor ``table`` (V, d) that may be split on the
+    vocab over some mesh dims (the rules' "vocab" -> "model"): every rank
+    looks up the ids its own rows hold and zeros the rest, and the partial
+    rows are summed over those dims (exactly one rank adds a row that is
+    not zero, so the sum is the row).  This is the vocab-parallel lookup;
+    DTensor's own sharding of an index or an ``embedding`` is not there in
+    every release (its backward fails in some).  The output is laid out as
+    ``ids`` on the other dims."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from repro_torch.kernels import local
+    mesh = table.device_mesh
+    if not is_dtensor(ids):
+        ids = DTensor.from_local(ids, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    split = [i for i, p in enumerate(table.placements) if p == Shard(0)]
+    if any(table.placements[i] != Replicate() for i in range(mesh.ndim)
+           if i not in split) or any(ids.placements[i] != Replicate()
+                                     for i in split):
+        raise ValueError(f"a lookup of {ids.placements} ids in a "
+                         f"{table.placements} table")
+    block = 0                    # this rank's block of rows, mesh order
+    for i in split:
+        block = block * mesh.size(i) + mesh.get_local_rank(i)
+    rows = table.shape[0] // math.prod(mesh.size(i) for i in split)
+    out_pl = [Partial() if i in split else ids.placements[i]
+              for i in range(mesh.ndim)]
+
+    def body(t, x, v0):
+        at = x - v0
+        hit = (at >= 0) & (at < t.shape[0])
+        return t[torch.where(hit, at, 0)] * hit[..., None]
+    return local.run_local(body, (table, ids), (out_pl,), (block * rows,))
+
+
 # ------------------------------------------------------------------ loss util
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean cross-entropy of ``logits`` (..., V) at integer ``labels``
     (...), in f32.  The reference picks the label's logit with a one-hot
     product (partition-friendly over a sharded vocab); a gather picks the
-    same value."""
+    same value, and does so here, except over DTensor logits, which take
+    the one-hot product (where(hot, logit, 0) summed: the same value
+    again)."""
     lf = logits.float()
     m = torch.amax(lf, dim=-1, keepdim=True)
     lse = torch.log(torch.sum(torch.exp(lf - m), dim=-1)) + m[..., 0]
-    picked = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    labels = labels.long()
+    if is_dtensor(lf):
+        hot = labels[..., None] == torch.arange(lf.shape[-1],
+                                                device=labels.device)
+        picked = torch.sum(torch.where(hot, lf, 0.0), dim=-1)
+    else:
+        picked = torch.gather(lf, -1, labels[..., None])[..., 0]
     return torch.mean(lse - picked)

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.mamba_scan.ops import selective_scan
+from repro_torch.models.axes import constrain
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (Params, _dense_init, init_rmsnorm,
                                        rmsnorm)
@@ -91,8 +92,11 @@ def mamba1_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
     d_in = s.expand * d
     dt_rank = max(1, d // 16)
 
-    xz = x @ p["in_x"]                                    # (B, T, d_in)
-    z = x @ p["in_z"]
+    # under sharding rules the expanded channels (d_in) stay split over
+    # "model" through the conv and the scan; B and C are read by every
+    # channel, so they are replicated there
+    xz = constrain(x @ p["in_x"], ("batch", "seq", "ssm_ch"))  # (B,T,d_in)
+    z = constrain(x @ p["in_z"], ("batch", "seq", "ssm_ch"))
     conv_state = state.conv if state is not None else None
     xc, new_conv = causal_conv1d(xz, p["conv_w"], p["conv_b"], conv_state)
     xc = F.silu(xc.float())
@@ -100,10 +104,14 @@ def mamba1_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
     proj = (xc.to(x.dtype) @ p["x_proj"]).float()
     dt, B_, C_ = torch.split(proj, [dt_rank, s.d_state, s.d_state], dim=-1)
     dt = F.softplus(dt @ p["dt_proj"].float() + p["dt_bias"])
+    dt = constrain(dt, ("batch", "seq", "ssm_ch"))
+    B_ = constrain(B_, ("batch", "seq", None))
+    C_ = constrain(C_, ("batch", "seq", None))
     A = -torch.exp(p["A_log"])                            # (d_in, n)
 
-    h0 = state.h if state is not None else torch.zeros(
-        (B, d_in, s.d_state), dtype=torch.float32, device=x.device)
+    h0 = constrain(state.h if state is not None else xc.new_zeros(
+        (B, d_in, s.d_state), dtype=torch.float32), ("batch", "ssm_ch",
+                                                      None))
     if T == 1 and state is not None:
         # recurrent single step
         a = torch.exp(dt[:, 0, :, None] * A)              # (B, d_in, n)

@@ -18,6 +18,17 @@ that the update's f32 temporaries stay small beside a large leaf (a
 is elementwise, so the slices give the whole leaf's numbers bit for bit.
 The global norm sums a larger leaf's squares slice by slice too, which
 only reorders that leaf's f32 sum.
+
+On the sharded path the state's leaves are DTensors, laid out by ZeRO-1
+(``launch/shardings.py``, ``opt_state_specs``).  Each gradient is
+redistributed to its moment's placements and the same slice code updates
+the local shards in place; nothing is summed across shards, so the update
+is the single-process one bit for bit.  The new bf16 params come back in
+the moments' placements, and the caller lays them out as the params.  The
+global norm is the one exception: each leaf's squares are summed over its
+local shard and then over the ranks that hold other shards of it (an
+all-reduce over the mesh dims it is sharded on), which reorders the f32
+sum.
 """
 from __future__ import annotations
 
@@ -50,25 +61,42 @@ class AdamWConfig:
 
 def init(params: PyTree) -> AdamWState:
     """Step 0, f32 copies of ``params``, zero moments; on the params'
-    device."""
+    device (DTensors in the params' placements for DTensor params)."""
     first = T.leaves(params)[0]
     return AdamWState(
         step=torch.zeros((), dtype=torch.int32, device=first.device),
         master=T.tree_map(lambda x: x.detach().float().clone(), params),
-        m=T.tree_map(lambda x: torch.zeros(x.shape, dtype=torch.float32,
-                                           device=x.device), params),
-        v=T.tree_map(lambda x: torch.zeros(x.shape, dtype=torch.float32,
-                                           device=x.device), params))
+        m=T.tree_map(lambda x: torch.zeros_like(x, dtype=torch.float32),
+                     params),
+        v=T.tree_map(lambda x: torch.zeros_like(x, dtype=torch.float32),
+                     params))
+
+
+def _local_sum_sq(x: torch.Tensor) -> torch.Tensor:
+    if x.numel() <= CHUNK:
+        return torch.sum(torch.square(x.float()))
+    x = x.reshape(-1)
+    return sum(torch.sum(torch.square(x[i:i + CHUNK].float()))
+               for i in range(0, x.numel(), CHUNK))
+
+
+def _sum_sq(x: torch.Tensor) -> torch.Tensor:
+    """The sum of ``x``'s squares, a plain 0-d tensor; a DTensor's over
+    its local shard, then summed over the mesh dims it is sharded on (a
+    partial sum is reduced first)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    if not isinstance(x, DTensor):
+        return _local_sum_sq(x)
+    if any(p.is_partial() for p in x.placements):
+        x = x.redistribute(x.device_mesh, [
+            Replicate() if p.is_partial() else p for p in x.placements])
+    pl = [Partial() if isinstance(p, Shard) else p for p in x.placements]
+    return DTensor.from_local(_local_sum_sq(x.to_local()), x.device_mesh,
+                              pl, run_check=False).full_tensor()
 
 
 def global_norm(tree: PyTree) -> torch.Tensor:
-    def sum_sq(x):
-        if x.numel() <= CHUNK:
-            return torch.sum(torch.square(x.float()))
-        x = x.reshape(-1)
-        return sum(torch.sum(torch.square(x[i:i + CHUNK].float()))
-                   for i in range(0, x.numel(), CHUNK))
-    return torch.sqrt(sum(sum_sq(x) for x in T.leaves(tree)))
+    return torch.sqrt(sum(_sum_sq(x) for x in T.leaves(tree)))
 
 
 @torch.no_grad()
@@ -76,6 +104,12 @@ def update(grads: PyTree, state: AdamWState, lr: torch.Tensor,
            cfg: AdamWConfig = AdamWConfig()
            ) -> Tuple[PyTree, AdamWState, Dict[str, torch.Tensor]]:
     """Returns (new bf16 params, new state, metrics)."""
+    from torch.distributed.tensor import DTensor
+    # a DTensor gradient (a partial sum, or laid out as its param) is laid
+    # out as its moment first: reduce-scattered over "data" by ZeRO-1
+    grads = T.tree_map(
+        lambda g, p: g.redistribute(p.device_mesh, p.placements)
+        if isinstance(p, DTensor) else g, grads, state.master)
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     step = state.step + 1
@@ -83,6 +117,10 @@ def update(grads: PyTree, state: AdamWState, lr: torch.Tensor,
     b2c = 1.0 - cfg.b2 ** step.float()
 
     def upd(g, p, m, v):
+        if isinstance(p, DTensor):               # a ZeRO-1 shard
+            new = upd(g.to_local(), p.to_local(), m.to_local(), v.to_local())
+            return DTensor.from_local(new, p.device_mesh, p.placements,
+                                      run_check=False)
         new = torch.empty(p.shape, dtype=torch.bfloat16, device=p.device)
         g = g.reshape(-1)
         flat = [x.view(-1) for x in (p, m, v, new)]

@@ -1,6 +1,6 @@
 """Fault-tolerant training loop.
 
-Wires together: model (the ported patterns), AdamW, data pipeline
+Wires together: model (any of the ten configs), AdamW, data pipeline
 (synthetic or sharded files), periodic checkpointing with integrity
 manifests, optional cross-site checkpoint replication (the paper's
 scheduler), restart-from-manifest, and failure injection for tests.  A port

@@ -102,13 +102,16 @@ def _spell(node) -> str:
 # the reference stacks into banks: ``blocks``, ``tail``, a local_global
 # group's ``local``, and ``groups`` (a list of local_global groups, or a
 # hybrid model's list of lists of layers).  An MoE model's ``lead`` blocks
-# are a plain list in the reference too, so they are not stacked.
+# are a plain list in the reference too, so they are not stacked.  A
+# serving cache's layers (``KVCache``, ``Mamba1State``: NamedTuples) stack
+# under the same keys into the reference's cache banks.
 BANKS = ("blocks", "groups", "local", "tail")
 
 
 def _is_bank(key, node) -> bool:
     return (key in BANKS and isinstance(node, list) and bool(node)
-            and all(isinstance(x, (Mapping, list)) for x in node))
+            and all(isinstance(x, (Mapping, list)) or _is_namedtuple(x)
+                    for x in node))
 
 
 def _stack_bank(rows: list, stack: Callable[[List[Any]], Any]) -> Tree:
