@@ -47,7 +47,9 @@ it fails, and each of which prints its wall time:
    [4, 256, 32/4, 128] (a GQA group of 8), gemma3-27b's local (window 1024)
    and global prefill of 2048-token prompts [4, 2048, 32/16, 128],
    qwen2-vl-7b's serve shape [4, 256, 28/4, 128] (a GQA group of 7) and
-   zamba2-1.2b's and musicgen-large's [4, 256, 32/32, 64], and over strided
+   zamba2-1.2b's and musicgen-large's [4, 256, 32/32, 64], phase 17's
+   example shapes (the smoke serve's waves [4, 32|16, 4/1, 32], shorter
+   than one tile, and the quickstart's [8, 128, 9/3, 64]), and over strided
    KV-cache views; each bf16 case on the tensor-core kernel, with the block
    it launched.  The kernel's time and ``scaled_dot_product_attention``'s
    (with an explicit boolean mask for a window) are both the profiler's
@@ -56,8 +58,8 @@ it fails, and each of which prints its wall time:
    the plain version's time and the kernel's bound.
 8. Selective scan: the kernel against its plain PyTorch version on the card
    (rtol/atol 1e-4) at falcon-mamba-7b's serve shape, a ragged shape, one
-   4096-token prompt and the serve shape at the model's own range of A and
-   dt, at every layout (threads a channel), over the split in halves and
+   4096-token prompt, the serve shape at the model's own range of A and
+   dt and phase 17's smoke serve waves [4, 32|16, 256, 8], at every layout (threads a channel), over the split in halves and
    on unaligned views; each case and layout timed as the profiler's device
    time per call beside the bound, with the layout ``layout_for`` picks
    and ptxas's registers and spills.
@@ -80,7 +82,8 @@ it fails, and each of which prints its wall time:
    Functions: flash attention at smollm-135m's training batch [8, 1024,
    9/3, 64], at qwen3-14b's heads [1, 2048, 40/8, 128], at qwen3-moe's
    [4, 1024, 32/4, 128] and at gemma3-27b's windowed [2, 2048, 32/16, 128]
-   (window 1024) in bf16, the scan at falcon-mamba-7b's width [2, 512,
+   (window 1024) and at phase 17's example batches [8, 128, 9/3, 64] and
+   [4, 128, 4/1, 32] in bf16, the scan at falcon-mamba-7b's width [2, 512,
    8192, 16]; each forward held
    to the plain version (phase 7's and 8's tolerances), each gradient to
    the all-eager computation's (``GRAD_REL_TOL`` of the largest).  (10)
@@ -147,27 +150,45 @@ it fails, and each of which prints its wall time:
    by ``load_for_mesh``, gathered back bit for bit; the dry run of
    smollm-135m train_4k on a fake 8 x 8 mesh in a subprocess (bytes,
    FLOPs, collectives).  The phase must take less than 90 s.
+17. The examples, each through its ``main`` on the card:
+   ``examples/torch_quickstart.py`` trains smollm-135m at its published
+   config, 8 x 128 tokens, 12 steps, a failure at step 11 restarted from
+   the step-10 checkpoint (B3 ``==`` 30 layers x 13 executed steps, B1
+   ``==`` the checkpoint's 4 MiB reads at its save and restore);
+   ``torch_serve_batched.py`` serves 8 requests on smollm-135m's and
+   falcon-mamba-7b's smoke configs (B3 / B4 ``==`` layers x waves);
+   ``torch_train_with_replication.py`` stages a dataset to two pods,
+   trains 60 steps with a checkpoint replicated to POD1 and STORE every
+   20, loses POD0 and restores from POD1 (B1 ``==`` every file's 4 MiB
+   reads); ``torch_replication_campaign.py`` ends on the reference's line,
+   with no launch.  Each example's wall and the phase's.
 
-Each main path (phases 3, 6, 9, 10, 12, 13, 14, 15 and 16) is driven with
-every kernel's launch count set to 0 just before it and read just after.
+Each main path (phases 3, 6, 9, 10, 12, 13, 14, 15, 16 and 17) is driven
+with every kernel's launch count set to 0 just before it and read just
+after.
 It prints one ``{"kernels": [...]}`` JSON line, each kernel's ``launches``
 from its serving or replication path, ``launches_training`` from phase 10,
 the MoE and family paths' launches (``launches_moe_serve``,
 ``launches_moe_training``, ``launches_family_serve``,
 ``launches_family_training``) and the sharded path's
-(``launches_sharded`` of B3 and B4, ``launches_elastic`` of B1), and,
-last, the result line ``{"ok": true, "device": {...}}``.  It imports
+(``launches_sharded`` of B3 and B4, ``launches_elastic`` of B1) and the
+examples' (``launches_examples``), and, last, the result line ``{"ok": true, "device": {...}}``.  It imports
 neither JAX nor the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
+import importlib.util
+import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
 import tempfile
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -988,7 +1009,9 @@ ATTN_TOL = {"bfloat16": 2.5e-2, "float32": 2e-5}   # tests/test_kernels.py
 # serve shape (a GQA group of 8); gemma3-27b's local (window 1024) and
 # global prefill of a wave of 2048-token prompts, qwen2-vl-7b's serve shape
 # (a GQA group of 7) and zamba2-1.2b's and musicgen-large's (hd 64, no
-# grouping)
+# grouping); phase 17's examples: the smoke serve's two prefill waves
+# (prompts bucketed to 32 and 16 tokens, shorter than one tile) and the
+# quickstart's 8 x 128 training batch at smollm-135m's heads
 FLASH_CASES = [("main", 4, 256, 9, 3, 64, None, "bfloat16"),
                ("ragged_T200", 2, 200, 9, 3, 64, None, "bfloat16"),
                ("window128_hd128", 1, 384, 2, 2, 128, 128, "bfloat16"),
@@ -1001,7 +1024,10 @@ FLASH_CASES = [("main", 4, 256, 9, 3, 64, None, "bfloat16"),
                ("gemma3_global", 4, 2048, 32, 16, 128, None, "bfloat16"),
                ("qwen2_vl_serve", 4, 256, 28, 4, 128, None, "bfloat16"),
                ("zamba2_musicgen_serve", 4, 256, 32, 32, 64, None,
-                "bfloat16")]
+                "bfloat16"),
+               ("example_serve_T32", 4, 32, 4, 1, 32, None, "bfloat16"),
+               ("example_serve_T16", 4, 16, 4, 1, 32, None, "bfloat16"),
+               ("example_quickstart", 8, 128, 9, 3, 64, None, "bfloat16")]
 # the kernel each input type launches
 FLASH_KERNELS = {"bfloat16": ("tensor_core", "flash_fwd_wgmma_kernel"),
                  "float32": ("cuda_core", "flash_fwd_kernel")}
@@ -1139,6 +1165,9 @@ def phase_flash(torch, kernel, ref, card: str) -> dict:
             "at_families": {k: timings[k] for k in (
                 "gemma3_local", "gemma3_global", "qwen2_vl_serve",
                 "zamba2_musicgen_serve")},
+            "at_examples": {k: timings[k] for k in (
+                "example_serve_T32", "example_serve_T16",
+                "example_quickstart")},
             "cases": timings,
             "card": card}
 
@@ -1146,11 +1175,15 @@ def phase_flash(torch, kernel, ref, card: str) -> dict:
 # ------------------------------------------------------ selective scan (B4)
 # (label, B, T, D, N, inputs); "main" is falcon-mamba-7b's serve shape,
 # "long" one 4096-token prompt (a train_4k sequence) at its width, and
-# "model_range" the serve shape with the model's own A and dt (scan_inputs)
+# "model_range" the serve shape with the model's own A and dt (scan_inputs);
+# phase 17's falcon-mamba smoke serve: its two prefill waves of 32 and 16
+# tokens at the smoke width (256 channels, 8 states)
 SCAN_CASES = [("main", 4, 256, 8192, 16, "test"),
               ("ragged", 1, 100, 300, 8, "test"),
               ("long", 1, 4096, 8192, 16, "test"),
-              ("model_range", 4, 256, 8192, 16, "model")]
+              ("model_range", 4, 256, 8192, 16, "model"),
+              ("example_serve_T32", 4, 32, 256, 8, "test"),
+              ("example_serve_T16", 4, 16, 256, 8, "test")]
 SCAN_TOL = dict(rtol=1e-4, atol=1e-4)     # tests/test_kernels.py
 
 
@@ -1367,17 +1400,18 @@ FAMILY_SERVE_ARCHS = (
     ("gemma3-27b", 62, {"flash": 62, "scan": 0}, "flash_fwd_wgmma_kernel", 4,
      (6, None), {"prompts": (1030, 2000), "max_seq": 2080,
                  "check_tokens": 1040}),
-    ("zamba2-1.2b", 38, {"flash": 6, "scan": 0}, "flash_fwd_wgmma_kernel", 8,
+    ("zamba2-1.2b", 38, {"flash": 6, "scan": 0}, "flash_fwd_wgmma_kernel", 4,
      None, {"cut_layers": 7}),
-    ("qwen2-vl-7b", 28, {"flash": 28, "scan": 0}, "flash_fwd_wgmma_kernel", 8,
+    ("qwen2-vl-7b", 28, {"flash": 28, "scan": 0}, "flash_fwd_wgmma_kernel", 4,
      None, {"mrope_prefill": True}),
     ("musicgen-large", 48, {"flash": 48, "scan": 0},
-     "flash_fwd_wgmma_kernel", 8, None, {"cut_f32": True}))
+     "flash_fwd_wgmma_kernel", 4, None, {"cut_f32": True}))
 FAMILY_CUTS = ("gemma3-27b's f32 prefill/decode check at 6 of 62 layers (one "
                "local/global group; 62 layers in f32 are 108 GB); the "
                "card-vs-CPU cuts at 2 layers (gemma3: two windowed layers; "
                "musicgen in f32), 7 (zamba2: one group, the shared block, "
-               "one tail layer); "
+               "one tail layer); one wave profiled (4 requests, not 8: "
+               "zamba2's 8 launched 160,583 device ops); "
                "the bf16 serving runs at full depth")
 SERVE = dict(requests=8, max_new=16, max_batch=4, max_seq=1024)
 PREFILL_TOL = dict(atol=0.12, rtol=0.05)   # tests/test_models.py, bf16
@@ -1559,6 +1593,7 @@ def phase_serve(torch, get_config, LM, launch_serve, Engine, flash, scan,
         # an MoE wave's ~10^5)
         eng2 = Engine(cfg, model=model, max_batch=SERVE["max_batch"],
                       max_seq=max_seq)
+        t_prof = time.perf_counter()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t1 = time.perf_counter()
             serve(eng2, n_prof)
@@ -1576,6 +1611,7 @@ def phase_serve(torch, get_config, LM, launch_serve, Engine, flash, scan,
                      reverse=True)
         n_evs = len(evs)
         del prof, evs
+        profile_s = time.perf_counter() - t_prof
 
         # at full width: prefill(T-k) + k decode steps against the forward.
         # In bf16 over many random layers, two forwards of the same tokens
@@ -1589,9 +1625,11 @@ def phase_serve(torch, get_config, LM, launch_serve, Engine, flash, scan,
                              device=DEVICE,
                              generator=torch.Generator(device=DEVICE)
                              .manual_seed(SEED + 9))
+        t1 = time.perf_counter()
         bf16_errs = consistency(torch, model, toks, check_tol=False)
         mrope = (mrope_prefill(torch, model, flash, n_layers)
                  if opts.get("mrope_prefill") else None)
+        bf16_check_s = time.perf_counter() - t1
         del model, eng, eng2
         torch.cuda.empty_cache()
         f32_cfg, cut_dtype = cfg, torch.bfloat16
@@ -1614,6 +1652,7 @@ def phase_serve(torch, get_config, LM, launch_serve, Engine, flash, scan,
         # kernels on the card, from the same weights (an MoE's in f32 and
         # drop-free, where a bf16 rounding apart cannot flip its routing)
         cut = f32_cfg.with_(n_layers=opts.get("cut_layers", 2))
+        t1 = time.perf_counter()
         on_card = LM(cut, dtype=cut_dtype, device=DEVICE, seed=SEED + 1)
         on_cpu = LM(cut, dtype=cut_dtype, device="cpu",
                     params=on_card.params("cpu"))
@@ -1621,6 +1660,7 @@ def phase_serve(torch, get_config, LM, launch_serve, Engine, flash, scan,
         lg_cpu, _ = on_cpu.prefill(toks.cpu(), on_cpu.init_cache(2, 64))
         err_cut = allclose(torch, lg_card, lg_cpu, PREFILL_TOL,
                            "2-layer cut, card vs CPU")
+        cut_s = time.perf_counter() - t1
         del on_card, on_cpu
         torch.cuda.empty_cache()
 
@@ -1641,6 +1681,8 @@ def phase_serve(torch, get_config, LM, launch_serve, Engine, flash, scan,
                                         top[:10]],
             "consistency_max_err": {"f32": f32_errs, "bf16": bf16_errs},
             "f32_check_layers": f32_cfg.n_layers, "f32_check_s": check_s,
+            "profile_s": profile_s, "bf16_check_s": bf16_check_s,
+            "cut_s": cut_s,
             "cut_layers": cut.n_layers,
             "cut_2_layers_cpu_vs_card_max_err": err_cut,
             "cut_2_layers_dtype": str(cut_dtype)[6:],
@@ -1655,11 +1697,15 @@ def phase_serve(torch, get_config, LM, launch_serve, Engine, flash, scan,
 # (label, B, T, H, Hkv, hd, window): smollm-135m's training batch, one
 # 2048-token sequence at qwen3-14b's heads, qwen3-moe-30b-a3b's training
 # batch (phase 13: a GQA group of 8 at hd 128), and gemma3-27b's local
-# layers at 2 x 2048 tokens, where the 1024-token window masks
+# layers at 2 x 2048 tokens, where the 1024-token window masks; phase 17's
+# quickstart batch (8 x 128 at smollm-135m's heads) and the replication
+# example's smoke batch (4 x 128 at hd 32)
 TRAIN_ATTN_CASES = [("smollm_train", 8, 1024, 9, 3, 64, None),
                     ("qwen3_14b_train", 1, 2048, 40, 8, 128, None),
                     ("qwen3_moe_train", 4, 1024, 32, 4, 128, None),
-                    ("gemma3_train", 2, 2048, 32, 16, 128, 1024)]
+                    ("gemma3_train", 2, 2048, 32, 16, 128, 1024),
+                    ("example_quickstart", 8, 128, 9, 3, 64, None),
+                    ("example_replication", 4, 128, 4, 1, 32, None)]
 # falcon-mamba-7b's width: (B, T, D, N)
 TRAIN_SCAN_CASE = ("falcon_mamba_train", 2, 512, 8192, 16)
 # the Functions' gradients against the all-eager computation's: the largest
@@ -2071,8 +2117,6 @@ def phase_cli(cli, sweep, report) -> dict:
     the reference's numbers, killed at an iteration and resumed to the same
     trajectory, its flight recorder rendered by the post-mortem report, and
     a two-scenario sweep; each run's report goes to a file, not stdout."""
-    import contextlib
-    import io
     tmp = tempfile.mkdtemp(prefix="repro_torch_cli_")
     walls = {}
 
@@ -2145,29 +2189,31 @@ MOE_TRAIN = dict(steps=3, batch_size=4, seq_len=1024, peak_lr=1e-3, warmup=1,
 # its last step's checkpoint is saved, hashed, restored and held to the
 # state in memory, B3 calls a forward, free disk the checkpoint needs)
 MOE_TRAIN_ARCHS = (("qwen3-moe-30b-a3b", 4, MOE_TRAIN, False, 4, 0),
-                   ("deepseek-v2-lite-16b", 4, MOE_TRAIN, True, 0,
-                    40 * GiB))
+                   ("deepseek-v2-lite-16b", 2, MOE_TRAIN, True, 0,
+                    20 * GiB))
 MOE_TRAIN_CUTS = ("qwen3-moe-30b-a3b layers 48 -> 4 (3.1 G parameters: bf16 "
                   "params and grads and f32 AdamW state ~56 GB; 48 layers "
-                  "need ~490 GB); deepseek-v2-lite-16b layers 27 -> 4, the "
-                  "dense lead layer and 3 MoE layers (2.25 G parameters, "
-                  "~41 GB; its one checkpoint, params and AdamW state, is "
-                  "~32 GB on disk)")
+                  "need ~490 GB); deepseek-v2-lite-16b layers 27 -> 2, the "
+                  "dense lead layer and one MoE layer, so that its one "
+                  "checkpoint (params and AdamW state) is ~15 GB on disk "
+                  "(4 layers: 31.6 GB, whose save and restore through B1 "
+                  "took 101 of the phase's 124 s)")
 # The last four families (phase 15).  gemma3-27b: one local/global group
 # (6 layers) of 62 at 1 x 2048 tokens, where the window masks: its tied
 # 262144 x 5376 embedding alone is 1.4 G parameters (22 GB with its grads
 # and AdamW state), and 6 layers bring it to 3.9 G (62 GB, 70 GB with the
 # new bf16 params), so a second sequence's f32 logits (4.3 GB a copy) do
 # not fit.  qwen2-vl-7b: 8 of 28 layers on the frontend's embeddings with
-# M-RoPE ids (2.95 G parameters, 47 GB).  zamba2-1.2b and musicgen-large at
-# full depth; zamba2's checkpoint (two-level banks, the shared block) is
-# saved, hashed, restored and held to memory.
+# M-RoPE ids (2.95 G parameters, 47 GB).  zamba2-1.2b at two groups of six
+# and one tail layer (13 of 38: the least depth with two-level banks, the
+# shared block and a tail); its checkpoint is saved, hashed, restored and
+# held to memory.  musicgen-large at full depth.
 FAMILY_TRAIN = dict(steps=3, batch_size=4, seq_len=1024, peak_lr=1e-3,
                     warmup=1, remat=True, log_every=1)
 FAMILY_TRAIN_ARCHS = (
     ("gemma3-27b", 6, dict(FAMILY_TRAIN, batch_size=1, seq_len=2048), False,
      6, 0),
-    ("zamba2-1.2b", None, FAMILY_TRAIN, True, 6, 24 * GiB),
+    ("zamba2-1.2b", 13, FAMILY_TRAIN, True, 2, 10 * GiB),
     ("qwen2-vl-7b", 8, FAMILY_TRAIN, False, 8, 0),
     ("musicgen-large", None, FAMILY_TRAIN, False, 48, 0))
 FAMILY_TRAIN_CUTS = ("gemma3-27b layers 62 -> 6 (one local/global group; "
@@ -2175,7 +2221,10 @@ FAMILY_TRAIN_CUTS = ("gemma3-27b layers 62 -> 6 (one local/global group; "
                      "the new params) and batch 2 -> 1 of 2048 tokens (a "
                      "second sequence's f32 logits do not fit); qwen2-vl-7b "
                      "layers 28 -> 8 (2.95 G parameters, ~47 GB); zamba2-1.2b "
-                     "and musicgen-large at full depth")
+                     "layers 38 -> 13 (two groups and a tail layer; its "
+                     "checkpoint ~7 GB, not 16.4 GB, whose save and restore "
+                     "took 46 s, and its eager steps a third); "
+                     "musicgen-large at full depth")
 
 
 def check_restored_tree(torch, tree, cfg) -> dict:
@@ -2308,6 +2357,7 @@ def phase_train_archs(torch, get_config, LM, loop, adamw, kernels, flash,
 
         # a steady-state step of a fresh model, then its halves apart
         torch.cuda.reset_peak_memory_stats()
+        t_steady = time.perf_counter()
         model = LM(cfg, device=DEVICE, seed=SEED, remat=True)
         model.requires_grad_(True)
         state = adamw.init(model.params())
@@ -2340,7 +2390,7 @@ def phase_train_archs(torch, get_config, LM, loop, adamw, kernels, flash,
                      tokens_per_s=tokens_per_step / step_ms * 1e3,
                      fwd_bwd_ms=fwd_bwd_ms, adamw_update_ms=update_ms,
                      steady_peak_memory_gb=torch.cuda.max_memory_allocated()
-                     / 1e9)
+                     / 1e9, steady_s=time.perf_counter() - t_steady)
         del model, state, step_fn, batch, grads, params
         torch.cuda.empty_cache()
         out[arch] = entry
@@ -2608,6 +2658,233 @@ def phase_sharded(torch, get_config, LM, kernels, checksum, flash, scan,
 
 
 
+# ------------------------------------------------------------ phase 17
+# The four examples a new user runs first, through their ``main`` in this
+# process, on the card (their default device).  The quickstart trains the
+# published smollm-135m at the reference's 8 x 128 tokens; its failure at
+# step 11 falls after the step-10 checkpoint, so the restart restores it.
+QUICKSTART = dict(steps=12, fail_at=11, ckpt_every=10, batch=8, seq=128)
+QUICKSTART_ARGS = ["--preset", "full", "--arch", "smollm-135m",
+                   "--steps", str(QUICKSTART["steps"]),
+                   "--fail-at", str(QUICKSTART["fail_at"])]
+# (arch, the kernel a prefill wave launches once a layer) on the smoke
+# configs; 8 requests of 12 new tokens (the example's defaults)
+SERVE_EXAMPLES = (("smollm-135m", "flash"), ("falcon-mamba-7b", "scan"))
+SERVE_EXAMPLE_TOKENS = 8 * 12
+REPLICATION = dict(steps=60, ckpt_every=20, replicas=2)
+EXAMPLE_DISK_BYTES = 4 * GiB          # the quickstart's 1.9 GB checkpoint
+# what examples/replication_campaign.py prints last at its defaults (the
+# reference, on the CPU)
+CAMPAIGN_EXAMPLE_LAST = ("campaign finished in 10.0 simulated days (floor "
+                         "3.0 d); done=True")
+
+
+class KeptDir:
+    """``tempfile.TemporaryDirectory``'s stand-in in an example's module: the
+    example's tree stays until phase 17 has counted its files' reads."""
+
+    path = None
+
+    def __init__(self, *args, **kw):
+        pass
+
+    def __enter__(self):
+        return KeptDir.path
+
+    def __exit__(self, *exc):
+        return False
+
+
+def run_example(torch, name: str, argv, kernels):
+    """(stdout, wall s, launches by kernel) of ``examples/<name>.py``'s
+    ``main(argv)``, every count set to 0 just before it and read just
+    after; its temporary tree kept in ``KeptDir.path``."""
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    buf = io.StringIO()
+    KeptDir.path = train_dir(EXAMPLE_DISK_BYTES)
+    # only the example's own ``tempfile`` name sees the stand-in
+    mod.tempfile = types.SimpleNamespace(TemporaryDirectory=KeptDir)
+    for k in kernels:
+        k.launches = 0                                       # path starts
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = mod.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.__name__.rsplit(".", 1)[-1]: k.launches
+                for k in kernels}                            # path ends
+    text = buf.getvalue()
+    for line in text.splitlines():
+        if line.strip():
+            log(f"[17] {name}: {line}")
+    check(rc == 0, f"{name} exited {rc}")
+    return text, wall, launches
+
+
+def grab(pattern: str, text: str, what: str):
+    """The groups of ``pattern``'s first match in ``text``, or a failure."""
+    m = re.search(pattern, text, re.M)
+    check(m is not None, f"{what}: no line matches {pattern!r}")
+    return m.groups()
+
+
+def phase_examples(torch, get_config, loop, kernels, checksum, flash, scan,
+                   chunk_bytes: int, card: str) -> dict:
+    """The four examples on the card, each through its ``main``: the
+    quickstart at full width (B3 every forward, B1 over the checkpoint at
+    its save and at the restart's restore), batched serving (B3 or B4 once
+    a layer a prefill wave), training with replication (B1 on every byte
+    staged, copied, re-read and restored) and the replication campaign
+    (host only).  Launches ``==`` what each run's steps, waves and files
+    give; each example's wall."""
+    out = {"card": card}
+    zero = {k.__name__.rsplit(".", 1)[-1]: 0 for k in kernels}
+    byp = {"tensor_core": 0, "cuda_core": 0}
+    try:
+        # -- the quickstart, smollm-135m at its published config
+        cfg = get_config("smollm-135m")
+        walls = {"save_s": [], "restore_s": []}
+        save, restore = loop.save_checkpoint, loop.restore_checkpoint
+
+        def timed(fn, key):
+            def run(*args, **kw):
+                t = time.perf_counter()
+                got = fn(*args, **kw)
+                walls[key].append(time.perf_counter() - t)
+                return got
+            return run
+        loop.save_checkpoint = timed(save, "save_s")
+        loop.restore_checkpoint = timed(restore, "restore_s")
+        flash.launches_by_path.update(byp)
+        try:
+            text, wall, launches = run_example(
+                torch, "torch_quickstart", QUICKSTART_ARGS, kernels)
+        finally:
+            loop.save_checkpoint, loop.restore_checkpoint = save, restore
+        by_path = dict(flash.launches_by_path)
+        arch, steps, restarts = grab(
+            r"^arch=(\S+) steps=(\d+) restarts=(\d+) ", text, "quickstart")
+        first, last = (float(x) for x in grab(
+            r"^loss: (\S+) -> (\S+) ", text, "quickstart"))
+        check((arch, steps, restarts) == (
+            cfg.name, str(QUICKSTART["steps"]), "1") and all(
+            x == x and abs(x) < float("inf") for x in (first, last)),
+            f"quickstart: {arch} {steps} steps, {restarts} restarts, loss "
+            f"{first} -> {last}")
+        # steps 0..fail-1, then the steps from the last checkpoint on
+        executed = QUICKSTART["fail_at"] + QUICKSTART["steps"] - \
+            QUICKSTART["ckpt_every"]
+        ckpt = os.path.join(KeptDir.path, "ckpts",
+                            f"step-{QUICKSTART['ckpt_every']:06d}")
+        per = ckpt_hash_launches(ckpt, chunk_bytes)
+        want = dict(zero, checksum=2 * per["scan"],
+                    flash_attention=cfg.n_layers * executed)
+        check(launches == want and by_path == dict(
+            byp, tensor_core=want["flash_attention"]),
+            f"quickstart launches {launches} ({by_path}), want {want}: "
+            f"{executed} steps x {cfg.n_layers} layers, the checkpoint "
+            f"scanned at its save and its restore")
+        # one save; a restore at each start, the first finding nothing
+        check(len(walls["save_s"]) == 1 and len(walls["restore_s"]) == 2,
+              f"quickstart checkpoint walls {walls}")
+        tokens = executed * QUICKSTART["batch"] * QUICKSTART["seq"]
+        out["quickstart"] = {
+            "argv": QUICKSTART_ARGS, "batch": QUICKSTART["batch"],
+            "seq": QUICKSTART["seq"], "executed_steps": executed,
+            "restarts": 1, "loss": [first, last], "launches": launches,
+            "wall_s": wall, "tokens_per_s": tokens / wall,
+            "checkpoint_bytes": per["bytes"], **walls,
+            "save_gb_per_s": per["bytes"] / walls["save_s"][0] / 1e9,
+            "restore_gb_per_s": per["bytes"] / walls["restore_s"][1] / 1e9}
+        log(f"[17] quickstart: {json.dumps(out['quickstart'])} [{card}]")
+        shutil.rmtree(KeptDir.path, ignore_errors=True)
+
+        # -- batched serving on the smoke configs
+        for arch, kernel in SERVE_EXAMPLES:
+            text, wall, launches = run_example(
+                torch, "torch_serve_batched", ["--arch", arch], kernels)
+            n, waves, toks, tps = grab(
+                r"served (\d+) requests in (\d+) waves, (\d+) tokens in "
+                r"\S+ \((\S+) tok/s on cuda\)", text, arch)
+            n_layers = get_config(arch).smoke().n_layers
+            key = {"flash": "flash_attention", "scan": "mamba_scan"}[kernel]
+            want = dict(zero, **{key: n_layers * int(waves)})
+            check(int(n) == 8 and int(toks) == SERVE_EXAMPLE_TOKENS
+                  and launches == want,
+                  f"serve {arch}: {n} requests, {toks} tokens, launches "
+                  f"{launches}, want {want} ({waves} waves x {n_layers} "
+                  f"layers)")
+            out[f"serve {arch}"] = {"requests": int(n), "waves": int(waves),
+                                    "tokens": int(toks), "launches": launches,
+                                    "wall_s": wall,
+                                    "tokens_per_s": float(tps)}
+            log(f"[17] serve {arch} (smoke): {waves} waves, launches "
+                f"{launches}, wall {wall:.1f} s [{card}]")
+            shutil.rmtree(KeptDir.path, ignore_errors=True)
+
+        # -- training with replication: staging, checkpoints, a pod lost
+        text, wall, launches = run_example(
+            torch, "torch_train_with_replication", [], kernels)
+        staged = grab(r"^\[stage\] .* in (\d+) scheduler steps; "
+                      r"verified=(\w+)$", text, "staging")
+        replicated = re.findall(r"^\[train\] step (\d+) loss \S+ ckpt "
+                                r"replicated=(\w+)$", text, re.M)
+        restored = grab(r"^\[recover\] restored step (\d+) from (\w+);",
+                        text, "restore")
+        ckpts = list(range(REPLICATION["ckpt_every"], REPLICATION["steps"] + 1,
+                           REPLICATION["ckpt_every"]))
+        check(staged == ("3", "True") and replicated == [
+            (str(c), "True") for c in ckpts] and restored == (
+            str(ckpts[-1]), "POD1"),
+            f"train_with_replication: staged {staged}, replicated "
+            f"{replicated}, restored {restored}")
+        # the hash: every dataset file streamed and re-read into each pod;
+        # each checkpoint scanned at its save and copied (streamed and
+        # re-read) to each replica; the last one verified at the restore
+        store = os.path.join(KeptDir.path, "STORE", "datasets", "tokens")
+        staging = 2 * 2 * sum(hash_launches(os.path.getsize(
+            os.path.join(store, f)), chunk_bytes) for f in os.listdir(store))
+        pod1 = os.path.join(KeptDir.path, "POD1", "ckpts")
+        per = {c: ckpt_hash_launches(os.path.join(pod1, f"step-{c:06d}"),
+                                     chunk_bytes) for c in ckpts}
+        want_hash = staging + sum(p["scan"] + REPLICATION["replicas"] *
+                                  p["copy"] for p in per.values()) + \
+            per[ckpts[-1]]["scan"]
+        n_layers = get_config("smollm-135m").smoke().n_layers
+        want = dict(zero, checksum=want_hash,
+                    flash_attention=n_layers * REPLICATION["steps"])
+        check(launches == want,
+              f"train_with_replication launches {launches}, want {want}")
+        out["train_with_replication"] = {
+            "steps": REPLICATION["steps"], "checkpoints": ckpts,
+            "restored": list(restored), "staging_hash_launches": staging,
+            "launches": launches, "wall_s": wall}
+        log(f"[17] train_with_replication: {len(ckpts)} checkpoints "
+            f"replicated, restored step {restored[0]} from {restored[1]}, "
+            f"launches {launches} (staging {staging}), wall {wall:.1f} s "
+            f"[{card}]")
+        shutil.rmtree(KeptDir.path, ignore_errors=True)
+
+        # -- the replication campaign: host only
+        text, wall, launches = run_example(
+            torch, "torch_replication_campaign", [], kernels)
+        last_line = text.strip().splitlines()[-1]
+        check(last_line == CAMPAIGN_EXAMPLE_LAST and launches == zero,
+              f"campaign: {last_line!r} (want {CAMPAIGN_EXAMPLE_LAST!r}), "
+              f"launches {launches}")
+        out["replication_campaign"] = {"last_line": last_line,
+                                       "launches": launches, "wall_s": wall}
+        log(f"[17] replication_campaign: {last_line!r}, the reference's; "
+            f"no launch; wall {wall:.1f} s [{card}]")
+    finally:
+        if KeptDir.path:
+            shutil.rmtree(KeptDir.path, ignore_errors=True)
+    return out
+
+
 def main() -> None:
     # one allocator pool that grows in place: phase 15's gemma3 step peaks
     # at ~71 GB of the card's 79, and a pool fragmented into fixed segments
@@ -2758,11 +3035,22 @@ def main() -> None:
         "falcon-mamba-7b prefill": shard["prefill"]["falcon-mamba-7b"][
             "launches"]["scan"]}
     entry["launches_elastic"] = shard["elastic"]["launches"]
+    examples = timed(17, phase_examples, torch, get_config, loop, kernels,
+                     kernel, flash, scan, _CHUNK_BYTES, card)
+    log(f"[17] examples: phase wall {walls[17]:.1f} s [{card}]")
+    # the examples' launches: B1 under the quickstart's checkpoint and the
+    # staging and replication, B3 in their forwards and the smollm serve,
+    # B4 in the falcon-mamba serve
+    runs = {k: v["launches"] for k, v in examples.items() if k != "card"}
+    for e, key in ((entry, "checksum"), (flash_entry, "flash_attention"),
+                   (scan_entry, "mamba_scan")):
+        e["launches_examples"] = {k: n[key] for k, n in runs.items()
+                                  if n[key]}
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "repro"))
     check(not leaked, f"JAX-side modules were imported: {leaked}")
     log(f"phase walls (s): {json.dumps(walls)}")
-    log(f"total wall {time.perf_counter() - t0:.1f} s")
+    log(f"total wall {time.perf_counter() - t0:.1f} s [{card}]")
     print(json.dumps({"kernels": [entry, lane_entry, flash_entry,
                                   scan_entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {

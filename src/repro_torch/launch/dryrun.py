@@ -32,15 +32,24 @@ For each cell the JSON record holds:
     counterpart of the reference's HLO parser, ``parse_collectives``, which
     reads TPU HLO and has none here).
 
-Run one cell:  python -m repro_torch.launch.dryrun --arch smollm-135m
-                   --shape train_4k --mesh data=8,model=8 --out cell.json
-The mesh is the caller's (an H100 deployment's shape); there is no
-default, and the record goes only to ``--out``.
+Run one cell:   python -m repro_torch.launch.dryrun --arch qwen3-14b
+                    --shape train_4k [--multi-pod | --both-meshes]
+Run everything: python -m repro_torch.launch.dryrun --all [--force]
+                    (a subprocess a cell, as the reference runs them)
+Records land in experiments/dryrun_torch/{arch}__{shape}__{pod1|pod2}.json,
+beside the reference's experiments/dryrun/.  The mesh is the reference's
+production mesh (``mesh.make_production_mesh``: 16 x 16, or 2 x 16 x 16
+with ``--multi-pod``) unless ``--mesh data=8,model=8 --out F`` gives
+another (an H100 deployment's shape) and the record's path.
+``--all`` skips a cell whose record exists unless ``--force``, and writes
+skip records for ``long_500k`` on archs that are not subquadratic.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
+import subprocess
 import sys
 import time
 from contextlib import nullcontext
@@ -50,14 +59,19 @@ import numpy as np
 import torch
 
 from repro_torch import tree as T
-from repro_torch.configs import ARCH_IDS, SHAPES, get_config
+from repro_torch.configs import ARCH_IDS, SHAPES, get_config, \
+    shape_applicable
 from repro_torch.launch import shardings as SH
 from repro_torch.launch.analytic import analytic_cost
+from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models.axes import Spec, logical_axis_rules, placements
 from repro_torch.models.config import ModelConfig, param_count
 from repro_torch.models.model import LM, set_param
 from repro_torch.optim import adamw
 from repro_torch.optim.schedule import warmup_cosine
+
+OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
+                       "experiments", "dryrun_torch")
 
 
 def _replicated():
@@ -333,6 +347,8 @@ def run_cell(arch: str, shape_name: str, mesh_shape: Dict[str, int],
     shp = SHAPES[shape_name]
     B, T_, mode = shp["global_batch"], shp["seq_len"], shp["mode"]
     chips = int(np.prod(list(mesh_shape.values())))
+    if dist.is_initialized() and dist.get_world_size() != chips:
+        dist.destroy_process_group()       # a fake group of another mesh
     if not dist.is_initialized():
         dist.init_process_group("fake", rank=0, world_size=chips,
                                 store=FakeStore())
@@ -379,21 +395,90 @@ def run_cell(arch: str, shape_name: str, mesh_shape: Dict[str, int],
     return rec
 
 
+def cell_path(arch: str, shape: str, multi_pod: bool) -> str:
+    pods = "pod2" if multi_pod else "pod1"
+    return os.path.join(OUT_DIR, f"{arch}__{shape}__{pods}.json")
+
+
+def _write_skip(arch: str, shape: str) -> None:
+    for mp in (False, True):
+        with open(cell_path(arch, shape, mp), "w") as f:
+            json.dump({"arch": arch, "shape": shape, "ok": True,
+                       "skipped": "full-attention arch at 500k (DESIGN.md §5)",
+                       "chips": 512 if mp else 256}, f, indent=2)
+
+
+def _launch(cmd) -> int:
+    """Run one cell's command; its exit code."""
+    return subprocess.run(cmd).returncode
+
+
+def sweep(force: bool = False) -> int:
+    """Every (arch, applicable shape) on both production meshes, a
+    subprocess a cell, skipping a cell whose record exists unless
+    ``force``; skip records for the shapes an arch does not take."""
+    failures = []
+    for arch in ARCH_IDS:
+        for shape in SHAPES:
+            if not shape_applicable(arch, shape):
+                _write_skip(arch, shape)
+                continue
+            for mp in (False, True):
+                if os.path.exists(cell_path(arch, shape, mp)) and not force:
+                    continue
+                cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                       "--arch", arch, "--shape", shape]
+                if mp:
+                    cmd.append("--multi-pod")
+                print(">>", " ".join(cmd), flush=True)
+                if _launch(cmd) != 0:
+                    failures.append((arch, shape, mp))
+    print("FAILURES:", failures)
+    return 1 if failures else 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=ARCH_IDS, required=True)
-    ap.add_argument("--shape", choices=list(SHAPES), required=True)
-    ap.add_argument("--mesh", required=True,
-                    help="axis=size,... in mesh order, e.g. data=8,model=8")
-    ap.add_argument("--out", required=True, help="the JSON record's path")
+    ap.add_argument("--arch", choices=ARCH_IDS)
+    ap.add_argument("--shape", choices=list(SHAPES))
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--both-meshes", action="store_true")
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--force", action="store_true")
+    ap.add_argument("--mesh", default=None,
+                    help="axis=size,... in mesh order, e.g. data=8,model=8 "
+                         "(default: the production mesh)")
+    ap.add_argument("--out", default=None,
+                    help="the JSON record's path (default: cell_path)")
     ap.add_argument("--microbatches", type=int, default=None,
                     help="train cells: default two sequences a data shard")
     args = ap.parse_args(argv)
-    mesh_shape = {k: int(v) for k, v in
-                  (kv.split("=") for kv in args.mesh.split(","))}
-    rec = run_cell(args.arch, args.shape, mesh_shape, args.microbatches)
-    with open(args.out, "w") as f:
-        json.dump(rec, f, indent=2)
+    if args.all:
+        if args.mesh or args.out or args.microbatches:
+            ap.error("--all runs the production meshes' defaults into "
+                     "OUT_DIR")
+        os.makedirs(OUT_DIR, exist_ok=True)
+        return sweep(args.force)
+    if not (args.arch and args.shape):
+        ap.error("--arch and --shape are required without --all")
+    meshes = [False, True] if args.both_meshes else [args.multi_pod]
+    if len(meshes) > 1 and (args.mesh or args.out):
+        ap.error("--both-meshes writes the production meshes' records")
+    if args.mesh and not args.out:
+        ap.error("--mesh needs --out: OUT_DIR holds the production meshes' "
+                 "records")
+    for mp in meshes:
+        mesh_shape = ({k: int(v) for k, v in
+                       (kv.split("=") for kv in args.mesh.split(","))}
+                      if args.mesh else make_production_mesh(multi_pod=mp))
+        rec = run_cell(args.arch, args.shape, mesh_shape, args.microbatches)
+        out = args.out or cell_path(args.arch, args.shape, mp)
+        os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+        with open(out, "w") as f:
+            json.dump(rec, f, indent=2)
+        print(json.dumps({k: rec[k] for k in
+                          ("arch", "shape", "chips", "ok", "sharded_s",
+                           "flops_s")}))
     return 0
 
 

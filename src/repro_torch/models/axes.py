@@ -131,13 +131,12 @@ def constrain(x: torch.Tensor, names: Sequence[Optional[str]]
               ) -> torch.Tensor:
     """Redistribute a DTensor to the placements of its logical axis names
     (a no-op without rules, and for a plain tensor), divisibility-guarded
-    as ``guarded`` says."""
+    as ``guarded`` says.  Like the reference's ``with_sharding_constraint``
+    it lays out the gradient too: ``redistribute`` sends the gradient back
+    to the placements ``x`` had, also where the forward moves nothing."""
     from torch.distributed.tensor import DTensor
     if _ACTIVE is None or not isinstance(x, DTensor):
         return x
     mesh, _ = _ACTIVE
     spec = guarded(resolve(names), x.shape, mesh_sizes(mesh))
-    want = placements(spec, mesh)
-    if tuple(x.placements) == want:
-        return x
-    return x.redistribute(mesh, want)
+    return x.redistribute(mesh, placements(spec, mesh))

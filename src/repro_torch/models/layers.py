@@ -198,10 +198,16 @@ def attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
     # under sharding rules, heads stay split over "model" through rope and
     # attention where the rules' head gate is on, else the projections are
     # replicated there before they are cut into heads (a split of H * hd
-    # that is not one of whole heads cannot be viewed as heads); past the
-    # cut, single-token decode keeps the cache's layout, as in the reference
+    # that is not one of whole heads cannot be viewed as heads); the
+    # attention's output is laid out by heads again once flat, so that the
+    # gradient the row-parallel wo sends back, split over H * hd, is
+    # gathered before it is viewed as heads; past the cut, single-token
+    # decode keeps the cache's layout, as in the reference
     def _maybe(t, names):
         return constrain(t, names) if T > 1 else t
+
+    def merged(out):
+        return _maybe(out.reshape(B, T, H * hd), ("batch", "seq", "heads"))
 
     def heads(w, n, name):
         y = constrain(x @ w, ("batch", "seq", name)).reshape(B, T, n, hd)
@@ -221,7 +227,7 @@ def attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
 
     if cache is None:
         out = sdpa(q, k, v, positions, positions, window, prefix=True)
-        return out.reshape(B, T, H * hd) @ p["wo"], None
+        return merged(out) @ p["wo"], None
 
     S = cache.k.shape[1]
     ring = window is not None and S <= window
@@ -273,7 +279,7 @@ def attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
             valid = k_pos <= positions[:, -1:]    # (B, S): only filled slots
             out = sdpa(q, cache.k, cache.v, positions, k_pos, window,
                        valid=valid)
-    return out.reshape(B, T, H * hd) @ p["wo"], cache
+    return merged(out) @ p["wo"], cache
 
 
 # --------------------------------------------------------------------------- MLA

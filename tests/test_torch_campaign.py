@@ -213,7 +213,12 @@ def test_importing_every_port_module_loads_neither_jax_nor_repro():
 def test_port_sources_import_neither_jax_nor_repro():
     pattern = re.compile(r"^\s*(import jax|from jax|from repro\.|"
                          r"import repro\b|from repro import)", re.M)
-    files = sorted(PORT.rglob("*.py")) + sorted(REPO.glob("chip_*.py"))
+    examples = sorted(REPO.glob("examples/torch_*.py"))
+    files = sorted(PORT.rglob("*.py")) + sorted(REPO.glob("chip_*.py")) + \
+        examples
     assert len(files) > 12 and REPO / "chip_smoke.py" in files
+    assert [f.name for f in examples] == [
+        "torch_quickstart.py", "torch_replication_campaign.py",
+        "torch_serve_batched.py", "torch_train_with_replication.py"]
     for f in files:
         assert not pattern.search(f.read_text()), f

@@ -18,7 +18,18 @@ against the JAX package's.
 * One dry-run cell in a subprocess: smollm-135m decode_32k on a fake 2 x 2
   mesh; its parameter bytes equal the reference's abstract params' bytes,
   its elements ``param_count`` plus the norm scales it leaves out, and
-  rank 0's bytes those of the specs' shards.
+  rank 0's bytes those of the specs' shards.  The same cell on the default
+  mesh, the production 16 x 16 (the 2 x 16 x 16 pod mesh takes ~100 s on
+  this CPU, nearly all of it in DTensor's redistribute planner, which
+  searches a graph of placements on a three-axis mesh).  Two cells on
+  meshes of 8 and 4 ranks in one process, as ``--both-meshes`` runs them:
+  the second gets a fake group of its size and the 2 x 2 cell's record.
+  A training cell of qwen3-14b (cut to 5 layers) on 2 x 16, where 40
+  heads do not split over 16 ranks.
+* The sweep: ``make_production_mesh``, ``cell_path`` and the skip records
+  equal the reference's (in one JAX subprocess, where the reference's dry
+  run sets up 512 host devices); ``--all`` launches one subprocess a cell,
+  in the reference's order, through a stub.
 """
 import json
 import os
@@ -40,8 +51,10 @@ from repro_torch import tree as T
 from repro_torch.checkpoint.elastic import plan_reshard
 from repro_torch.configs import ARCH_IDS, SHAPES, get_config, \
     shape_applicable
+from repro_torch.launch import dryrun
 from repro_torch.launch import shardings as SH
 from repro_torch.launch.analytic import analytic_cost
+from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models.config import param_count
 from repro_torch.models.model import LM
 
@@ -186,17 +199,38 @@ def test_plan_reshard_equal_reference(trees):
             shapes, old, new, jspec)
 
 
-def test_dryrun_cell(tmp_path):
-    """A full-size cell on a fake 2 x 2 mesh, in its own process (the fake
-    process group must not share one with a real group)."""
+def _shard_bytes(cfg, shape) -> int:
+    """Rank 0's bytes of the params laid out by the port's specs."""
+    params = LM(cfg, device="meta").params()
+    specs = SH.layer_param_specs(params, cfg, shape)
+    return sum(x.numel() * x.element_size() // int(np.prod(
+        [SH.axis_size(a, shape) for a in s]))
+        for x, s in zip(T.leaves(params), T.leaves(specs)))
+
+
+def _dryrun(tmp_path, *args) -> dict:
+    """One cell's record from ``python -m repro_torch.launch.dryrun``."""
     out = tmp_path / "cell.json"
     r = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-         "smollm-135m", "--shape", "decode_32k", "--mesh", "data=2,model=2",
-         "--out", str(out)], cwd=tmp_path, capture_output=True, text=True,
+         "smollm-135m", "--shape", "decode_32k", *args, "--out", str(out)],
+        cwd=tmp_path, capture_output=True, text=True,
         timeout=300, env=dict(os.environ, PYTHONPATH=str(REPO / "src")))
     assert r.returncode == 0, r.stderr[-3000:]
-    rec = json.loads(out.read_text())
+    return json.loads(out.read_text())
+
+
+@pytest.fixture(scope="module")
+def cell_2x2(tmp_path_factory):
+    """smollm-135m decode_32k on a fake 2 x 2 mesh, from a fresh process."""
+    return _dryrun(tmp_path_factory.mktemp("cell"), "--mesh",
+                   "data=2,model=2")
+
+
+def test_dryrun_cell(cell_2x2):
+    """A full-size cell on a fake 2 x 2 mesh, in its own process (the fake
+    process group must not share one with a real group)."""
+    rec = cell_2x2
     mem = rec["memory"]
     cfg, jcfg = get_config("smollm-135m"), jget_config("smollm-135m")
     jshapes = jax.eval_shape(JLM(jcfg, remat=False).init,
@@ -207,14 +241,179 @@ def test_dryrun_cell(tmp_path):
     norms = (2 * cfg.n_layers + 1) * cfg.d_model    # ln1, ln2, final_norm
     assert mem["param_elements"] == param_count(cfg)[0] + norms
     assert mem["param_bytes"] == 2 * mem["param_elements"]       # all bf16
-    shape = {"data": 2, "model": 2}
-    params = LM(cfg, device="meta").params()
-    specs = SH.layer_param_specs(params, cfg, shape)
-    assert mem["params_per_device"] == sum(
-        x.numel() * x.element_size() // int(np.prod(
-            [SH.axis_size(a, shape) for a in s]))
-        for x, s in zip(T.leaves(params), T.leaves(specs)))
+    assert mem["params_per_device"] == _shard_bytes(cfg, {"data": 2,
+                                                          "model": 2})
     assert mem["cache_per_device"] > 0
     assert rec["flops"] > rec["model_flops"] > 0
     assert rec["collectives"].get("all_reduce", 0) > 0
     assert rec["analytic"] == janalytic_cost(jcfg, 128, 32768, "decode")
+
+
+def test_dryrun_cell_on_the_production_mesh(tmp_path):
+    rec = _dryrun(tmp_path)
+    cfg = get_config("smollm-135m")
+    mesh = {"data": 16, "model": 16}
+    assert rec["ok"] and rec["mesh"] == mesh and rec["chips"] == 256
+    assert rec["memory"]["params_per_device"] == _shard_bytes(cfg, mesh)
+    assert rec["rules"] == SH.logical_rules(mesh, 128, cfg)
+
+
+_TWO_MESHES = """
+import json, sys
+import torch.distributed as dist
+from repro_torch.launch.dryrun import run_cell
+recs = []
+for mesh in ({"data": 4, "model": 2}, {"data": 2, "model": 2}):
+    rec = run_cell("smollm-135m", "decode_32k", mesh)
+    recs.append(dict(rec, world=dist.get_world_size()))
+print(json.dumps(recs))
+"""
+
+
+def test_run_cell_recreates_the_fake_group_for_another_mesh(tmp_path,
+                                                            cell_2x2):
+    """Two meshes in one process (as ``--both-meshes`` runs them): the
+    second cell gets a fake group of its own size, and its record equals
+    the one a fresh process writes."""
+    r = subprocess.run([sys.executable, "-c", _TWO_MESHES], cwd=tmp_path,
+                       capture_output=True, text=True, timeout=300,
+                       env=dict(os.environ, PYTHONPATH=str(REPO / "src")))
+    assert r.returncode == 0, r.stderr[-3000:]
+    first, second = json.loads(r.stdout.splitlines()[-1])
+    assert (first["chips"], first["world"]) == (8, 8)
+    assert (second["chips"], second["world"]) == (4, 4)
+    for key in ("mesh", "memory", "collectives", "flops", "rules"):
+        assert second[key] == cell_2x2[key], key
+
+
+_ODD_HEADS = """
+import dataclasses, json
+from repro_torch.launch import dryrun
+real = dryrun.get_config
+dryrun.get_config = lambda a: dataclasses.replace(real(a), n_layers=5)
+dryrun.SHAPES["train_4k"] = dict(dryrun.SHAPES["train_4k"], global_batch=8,
+                                 seq_len=256)
+rec = dryrun.run_cell("qwen3-14b", "train_4k", {"data": 2, "model": 16}, 1)
+print(json.dumps({k: rec[k] for k in ("ok", "rules")}))
+"""
+
+
+def test_dryrun_train_cell_with_heads_split_unevenly(tmp_path):
+    """qwen3-14b's 40 heads on 16 "model" ranks (the head gate off; cut to
+    5 layers and 8 x 256 tokens): the gradient that the row-parallel wo
+    sends back, split over H * hd, is laid out by heads before it is
+    viewed as heads, as the reference's constraints lay out cotangents."""
+    r = subprocess.run([sys.executable, "-c", _ODD_HEADS], cwd=tmp_path,
+                       capture_output=True, text=True, timeout=300,
+                       env=dict(os.environ, PYTHONPATH=str(REPO / "src")))
+    assert r.returncode == 0, r.stderr[-3000:]
+    rec = json.loads(r.stdout.splitlines()[-1])
+    assert rec["ok"] and rec["rules"]["heads"] is None
+
+
+# The reference's sweep facts, in a JAX subprocess: importing its dry run
+# sets up 512 host devices before JAX loads
+_JAX_SWEEP = r"""
+import json, os, sys
+from repro.launch import dryrun
+from repro.launch.mesh import make_production_mesh
+
+d, cells = sys.argv[1], json.loads(sys.argv[2])
+out = {"meshes": [list(make_production_mesh(multi_pod=mp).shape.items())
+                  for mp in (False, True)]}
+dryrun.OUT_DIR = d
+out["paths"] = [os.path.relpath(dryrun.cell_path(*c), d) for c in cells]
+cmds = []
+
+class Done:
+    returncode = 0
+
+def run(cmd):
+    cmds.append(cmd[3:])
+    return Done()
+
+dryrun.subprocess.run = run
+sys.argv = ["dryrun", "--all", "--force"]
+assert dryrun.main() == 0
+out["cmds"] = cmds
+out["records"] = {p: json.load(open(os.path.join(d, p)))
+                  for p in sorted(os.listdir(d))}
+print(json.dumps(out))
+"""
+CELLS = [("smollm-135m", "train_4k", False), ("gemma3-27b", "long_500k",
+                                               True)]
+
+
+@pytest.fixture(scope="module")
+def ref_sweep(tmp_path_factory):
+    from conftest import jax_subprocess_env
+    d = tmp_path_factory.mktemp("jax_dryrun")
+    r = subprocess.run([sys.executable, "-c", _JAX_SWEEP, str(d),
+                        json.dumps(CELLS)], capture_output=True, text=True,
+                       timeout=300, env=jax_subprocess_env())
+    assert r.returncode == 0, r.stderr[-3000:]
+    return json.loads(r.stdout.splitlines()[-1])
+
+
+def test_production_mesh_equals_reference(ref_sweep):
+    got = [[list(kv) for kv in make_production_mesh(multi_pod=mp).items()]
+           for mp in (False, True)]
+    assert got == ref_sweep["meshes"]
+    assert got[1] == [["pod", 2], ["data", 16], ["model", 16]]
+
+
+def test_sweep_launches_a_subprocess_a_cell_as_the_reference(
+        ref_sweep, tmp_path, monkeypatch):
+    monkeypatch.setattr(dryrun, "OUT_DIR", str(tmp_path))
+    assert [os.path.relpath(dryrun.cell_path(*c), tmp_path)
+            for c in CELLS] == ref_sweep["paths"]
+    cmds = []
+    monkeypatch.setattr(dryrun, "_launch",
+                        lambda cmd: cmds.append(cmd) or 0)
+    assert dryrun.main(["--all", "--force"]) == 0
+    # the reference's cells, in its order, each with its flags
+    assert [c[3:] for c in cmds] == ref_sweep["cmds"]
+    assert all(c[:3] == [sys.executable, "-m", "repro_torch.launch.dryrun"]
+               for c in cmds)
+    want = {(a, s, mp) for a in ARCH_IDS for s in SHAPES
+            if shape_applicable(a, s) for mp in (False, True)}
+    got = [(c[4], c[6], "--multi-pod" in c) for c in cmds]
+    assert len(got) == len(want) and set(got) == want
+    # skip records where the reference writes them, with its fields
+    records = {p.name: json.loads(p.read_text())
+               for p in sorted(tmp_path.iterdir())}
+    assert records == ref_sweep["records"] and records
+    assert all(r["skipped"] and r["shape"] == "long_500k"
+               for r in records.values())
+
+
+def test_sweep_skips_written_cells_unless_forced(tmp_path, monkeypatch):
+    monkeypatch.setattr(dryrun, "OUT_DIR", str(tmp_path))
+    cmds = []
+    monkeypatch.setattr(dryrun, "_launch",
+                        lambda cmd: cmds.append(cmd) or 0)
+    cells = [(a, s, mp) for a in ARCH_IDS for s in SHAPES
+             if shape_applicable(a, s) for mp in (False, True)]
+    for c in cells[1:]:
+        Path(dryrun.cell_path(*c)).write_text("{}")
+    assert dryrun.main(["--all"]) == 0
+    assert [(c[4], c[6], "--multi-pod" in c) for c in cmds] == cells[:1]
+    monkeypatch.setattr(dryrun, "_launch", lambda cmd: 1)
+    assert dryrun.main(["--all", "--force"]) == 1
+
+
+@pytest.mark.parametrize("argv", [["--all", "--mesh", "data=2,model=2"],
+                                  ["--all", "--out", "x.json"],
+                                  ["--arch", "smollm-135m"],
+                                  ["--arch", "smollm-135m", "--shape",
+                                   "train_4k", "--both-meshes", "--out",
+                                   "x.json"],
+                                  ["--arch", "smollm-135m", "--shape",
+                                   "train_4k", "--mesh", "data=2,model=2"]])
+def test_dryrun_cli_refuses_mixed_flags(argv, tmp_path, monkeypatch):
+    """A custom mesh or path never writes into the production records."""
+    monkeypatch.setattr(dryrun, "OUT_DIR", str(tmp_path))
+    with pytest.raises(SystemExit):
+        dryrun.main(argv)
+    assert not list(tmp_path.iterdir())
+

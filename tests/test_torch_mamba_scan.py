@@ -230,6 +230,7 @@ SERVE_SCANS = [("chip_smoke_serve", 4, _bucket(chip_smoke.SERVE["max_seq"]
                ("launch_serve_defaults", 4, _bucket(256 // 4 - 1), 8192,
                 16)]
 WANT_LAYOUT = {"main": 1, "ragged": 4, "long": 2, "model_range": 1,
+               "example_serve_T32": 4, "example_serve_T16": 4,
                "chip_smoke_serve": 1, "launch_serve_defaults": 1}
 
 

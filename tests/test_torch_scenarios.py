@@ -115,3 +115,23 @@ def test_snapshot_resumes_across_packages(tmp_path, scenario, writer, reader):
     report = revents.run_world(world, engine=snap.engine, stats=stats,
                                resume=loop)
     assert rcrash.summarize_trajectory(world, report, stats) == want
+
+
+# BENCH_scenarios.json's engine_comparison: paper-2022, 48 datasets, scale
+# 1.0, seed 0 (iterations, duration days, faults, the most on one transfer)
+ENGINE_PIN = {"step": (5096, 106.167, 703, 195),
+              "events": (474, 105.613, 703, 195)}
+
+
+@pytest.mark.parametrize("engine", ENGINE_PIN)
+def test_paper_campaign_engines_pinned(engine):
+    """Both engines at the engine_comparison shape: the port's run equals
+    the reference's and the numbers the repo has recorded for it."""
+    got = []
+    for events in (jevents, tevents):
+        stats = events.EngineStats()
+        rep = events.run_scenario("paper-2022", engine=engine, scale=1.0,
+                                  seed=0, n_datasets=48, stats=stats)
+        got.append((stats.iterations, round(rep.duration_days, 3),
+                    rep.faults_total, rep.faults_per_transfer_max))
+    assert got[1] == got[0] == ENGINE_PIN[engine]

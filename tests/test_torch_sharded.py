@@ -8,7 +8,9 @@ Two ranks (``torch_gloo.sharded2``), smoke configs in f32:
   smollm with ``n_kv_heads=2`` on (model 2) turns the rules' head gate on,
   and B3's plain version is handed half the heads of each kind;
 * one ``build_train_step`` step on (data 2), on (model 2) with heads
-  sharded (``n_kv_heads=2``), and on (data 2) with FSDP-sharded params and
+  sharded (``n_kv_heads=2``), on (model 2) with 3 query heads (the head
+  gate off, and wo's row-parallel gradient, split over H * hd, not one of
+  whole heads), and on (data 2) with FSDP-sharded params and
   ``hoist_fsdp``: the f32 master params and
   moments and the loss within 1e-5 of the single-process step (the global
   norm sums the shards' squares in another order), the new bf16 params
@@ -162,7 +164,8 @@ def test_heads_sharded_forward(two):
                                rtol=FWD_TOL)
 
 
-@pytest.mark.parametrize("case", ["data2", "model2", "hoist"])
+@pytest.mark.parametrize("case", ["data2", "model2", "model2_odd_heads",
+                                  "hoist"])
 def test_train_step_matches_single_process(two, case):
     r = _ok(two[f"train {case}"])
     assert r["dtypes"] == ["torch.bfloat16"]

@@ -250,6 +250,8 @@ def sharded2(rank, world, ckpts):
         ("train model2", lambda: _train("smollm-135m",
                                         {"data": 1, "model": 2},
                                         n_kv_heads=2)),
+        ("train model2_odd_heads", lambda: _train(
+            "smollm-135m", {"data": 1, "model": 2}, n_heads=3)),
         ("train hoist", lambda: _train("smollm-135m",
                                        {"data": 2, "model": 1}, True)),
         ("restore", lambda: _restore(ckpts, {"data": 1, "model": 2})),
