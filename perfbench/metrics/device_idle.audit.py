@@ -1,0 +1,3 @@
+"""Share of the traced audit window in which no kernel, copy or fill ran
+on the card."""
+from perfbench.metrics_common import idle_share as read  # noqa: F401
