@@ -67,8 +67,7 @@ class SelectiveScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_y, grad_h):
         needed = ctx.needs_input_grad
-        with torch.enable_grad(), torch.profiler.record_function(
-                "selective_scan_eager_backward"):
+        with torch.enable_grad():
             ins = [x.detach().requires_grad_(need)
                    for x, need in zip(ctx.saved_tensors, needed)]
             y, hT = scan_recurrence(*ins)

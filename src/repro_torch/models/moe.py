@@ -42,6 +42,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig, MoEConfig
 from repro_torch.models.layers import _dense_init, init_mlp, mlp
+from repro_torch.obs import spans
 
 Params = Mapping[str, torch.Tensor]
 
@@ -102,6 +103,9 @@ def _dispatch(top_i: torch.Tensor, C: int, E: int, e0: int = 0,
     ar = torch.arange(n, device=flat_e.device)
     order = torch.argsort(flat_e, stable=True)
     counts = _count(flat_e, E)
+    # the block's routings before capacity; with C and Eb they give the
+    # expert rows that hold a kept routing (recorded while profiling)
+    spans.count("moe.dispatch", counts[e0:e0 + Eb], C=C, Eb=Eb)
     starts = torch.cumsum(counts, 0) - counts                        # (E,)
     pos = torch.empty_like(ar)
     pos[order] = ar - starts[flat_e[order]]                          # slot in expert

@@ -6,7 +6,10 @@ the card, its plain version on the CPU; it replaces the reference's chunked
 associative scan, which computes the same recurrence.  Its gradient on the
 card is the op's eager backward (``kernels/mamba_scan/ops.py``).  The single-step
 recurrence of decode stays plain PyTorch.  All scan math is f32; the
-projections run in the parameters' dtype.
+projections run in the parameters' dtype.  While a profiler runs, the f32
+pointwise stages around the scan are fine spans (``repro_torch.obs.spans``):
+``mamba1.conv`` (the causal conv and SiLU) and ``mamba1.gate`` (``y + D xc``
+and the SiLU gate).
 
 Mamba2 (zamba2) runs the reference's chunked SSD algorithm as eager
 PyTorch: the reference has no kernel for it either, and its products are
@@ -26,6 +29,7 @@ from repro_torch.models.axes import constrain
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (Params, _dense_init, init_rmsnorm,
                                        rmsnorm)
+from repro_torch.obs import spans
 
 
 # ------------------------------------------------------------------ conv1d
@@ -98,8 +102,10 @@ def mamba1_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
     xz = constrain(x @ p["in_x"], ("batch", "seq", "ssm_ch"))  # (B,T,d_in)
     z = constrain(x @ p["in_z"], ("batch", "seq", "ssm_ch"))
     conv_state = state.conv if state is not None else None
-    xc, new_conv = causal_conv1d(xz, p["conv_w"], p["conv_b"], conv_state)
-    xc = F.silu(xc.float())
+    with spans.fine("mamba1.conv"):
+        xc, new_conv = causal_conv1d(xz, p["conv_w"], p["conv_b"],
+                                     conv_state)
+        xc = F.silu(xc.float())
 
     proj = (xc.to(x.dtype) @ p["x_proj"]).float()
     dt, B_, C_ = torch.split(proj, [dt_rank, s.d_state, s.d_state], dim=-1)
@@ -123,8 +129,9 @@ def mamba1_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
         # reference's does); the scan takes it in f32, where the reference's
         # dt * A promotes it
         y, hT = selective_scan(xc, dt, B_, C_, A.float(), h0)
-    y = y + p["D"] * xc
-    y = y * F.silu(z.float())
+    with spans.fine("mamba1.gate"):
+        y = y + p["D"] * xc
+        y = y * F.silu(z.float())
     out = y.to(x.dtype) @ p["out_proj"]
     new_state = (Mamba1State(new_conv, hT)
                  if (return_state or state is not None) else None)

@@ -20,6 +20,11 @@ mid-campaign.  This package gives the simulator the same layer:
   * ``python -m repro_torch.obs.report`` — the post-mortem CLI: days-vs-bytes
     curve, fault/outage timeline, slowest routes, most-retried datasets.
 
+These run on the simulated clock.  ``repro_torch.obs.spans`` is the one
+module on the host's clock: the span log of the port's hot path (serving,
+the Mamba1 mixer, the MoE dispatch, AdamW), which a benchmark reads beside a
+device trace.
+
 Declared via ``ObsSpec`` on a ``ScenarioSpec``; the default ``NO_OBS``
 compiles to **zero hooks**, and the hard contract is bit-identical
 trajectories and snapshots with obs on or off.

@@ -29,15 +29,23 @@ global norm is the one exception: each leaf's squares are summed over its
 local shard and then over the ranks that hold other shards of it (an
 all-reduce over the mesh dims it is sharded on), which reorders the f32
 sum.
+
+The whole update is one coarse span, ``adamw.update``
+(``repro_torch.obs.spans``), whose attrs are the bytes an update must move,
+summed over the leaves (their local shards): ``numel``, ``grad_bytes``,
+``state_bytes`` (master, m and v as held) and ``out_bytes`` (the bf16
+params written).  They are computed once per state tree and cached.
 """
 from __future__ import annotations
 
+import weakref
 from dataclasses import dataclass
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict, List, NamedTuple, Tuple
 
 import torch
 
 from repro_torch import tree as T
+from repro_torch.obs import spans
 
 PyTree = Any
 CHUNK = 1 << 26            # elements of a leaf updated at once
@@ -99,17 +107,55 @@ def global_norm(tree: PyTree) -> torch.Tensor:
     return torch.sqrt(sum(_sum_sq(x) for x in T.leaves(tree)))
 
 
+# the last state tree's byte counts: (a weak reference to its first master
+# leaf, the first gradient's dtype, the counts)
+_bytes_cache: Tuple[Any, Any, Dict[str, int]] = (None, None, {})
+
+
+def _leaf_bytes(gl: List[torch.Tensor], pl: List[torch.Tensor],
+                ml: List[torch.Tensor], vl: List[torch.Tensor]
+                ) -> Dict[str, int]:
+    """The bytes one update moves at least, summed over the leaves' local
+    shards; recomputed only when the state tree or the gradients' dtype
+    changes."""
+    global _bytes_cache
+    from torch.distributed.tensor import DTensor
+    ref, dtype, out = _bytes_cache
+    if ref is not None and ref() is pl[0] and dtype is gl[0].dtype:
+        return out
+    n = [(p.to_local() if isinstance(p, DTensor) else p).numel()
+         for p in pl]
+    out = {"numel": sum(n),
+           "grad_bytes": sum(k * g.element_size() for k, g in zip(n, gl)),
+           "state_bytes": sum(k * (p.element_size() + m.element_size()
+                                   + v.element_size())
+                              for k, p, m, v in zip(n, pl, ml, vl)),
+           "out_bytes": 2 * sum(n)}
+    _bytes_cache = (weakref.ref(pl[0]), gl[0].dtype, out)
+    return out
+
+
 @torch.no_grad()
 def update(grads: PyTree, state: AdamWState, lr: torch.Tensor,
            cfg: AdamWConfig = AdamWConfig()
            ) -> Tuple[PyTree, AdamWState, Dict[str, torch.Tensor]]:
     """Returns (new bf16 params, new state, metrics)."""
+    with spans.span("adamw.update") as sp:
+        return _update(grads, state, lr, cfg, sp)
+
+
+def _update(grads: PyTree, state: AdamWState, lr: torch.Tensor,
+            cfg: AdamWConfig, sp: spans.Span
+            ) -> Tuple[PyTree, AdamWState, Dict[str, torch.Tensor]]:
     from torch.distributed.tensor import DTensor
     # a DTensor gradient (a partial sum, or laid out as its param) is laid
     # out as its moment first: reduce-scattered over "data" by ZeRO-1
     grads = T.tree_map(
         lambda g, p: g.redistribute(p.device_mesh, p.placements)
         if isinstance(p, DTensor) else g, grads, state.master)
+    gl, pl, ml, vl = (T.leaves(t) for t in (grads, state.master, state.m,
+                                              state.v))
+    sp.attrs = _leaf_bytes(gl, pl, ml, vl)
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     step = state.step + 1
@@ -136,9 +182,7 @@ def update(grads: PyTree, state: AdamWState, lr: torch.Tensor,
             new_.copy_(p_.to(torch.bfloat16))
         return new
 
-    bf16 = [upd(g, p, m, v) for g, p, m, v in zip(
-        T.leaves(grads), T.leaves(state.master), T.leaves(state.m),
-        T.leaves(state.v))]
+    bf16 = [upd(g, p, m, v) for g, p, m, v in zip(gl, pl, ml, vl)]
     return T.unflatten(grads, bf16), AdamWState(
         step, state.master, state.m, state.v), {
         "grad_norm": gnorm, "clip_scale": scale}

@@ -10,7 +10,11 @@ the wave drains the next one is admitted.  The model runs on ``device``
 ``stats`` keeps the host-clock seconds of each prefill and each decode step,
 each ending when its next tokens reach the host (which waits for the
 device), for the serving metrics: prefill time per wave, decode time per
-token.
+token.  They are the durations of the engine's coarse spans
+(``repro_torch.obs.spans``): ``engine.prefill`` from the cache's creation
+to the wave's first tokens on the host, and ``engine.decode`` for a step,
+with the child ``lm.decode_step`` around the call into the model, which
+returns once the step's work is enqueued.
 
 A config with K codebooks (musicgen) takes prompts (T, K), decodes a
 (B, 1, K) token a step, and returns each step's K ids as a list, as the
@@ -18,7 +22,6 @@ reference does.
 """
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
@@ -28,6 +31,7 @@ import torch
 from repro_torch.kernels.device import Device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import LM
+from repro_torch.obs import spans
 
 
 @dataclass
@@ -92,11 +96,12 @@ class Engine:
         toks = np.zeros((B, T, *book), np.int32)
         for i, r in enumerate(wave):
             toks[i, T - lens[i]:T] = r.prompt     # left-pad
-        t0 = time.perf_counter()
-        cache = self.model.init_cache(B, self.S)
-        logits, cache = self.model.prefill(torch.from_numpy(toks), cache)
-        nxt = self._greedy(logits)
-        self.stats["prefill_s"].append(time.perf_counter() - t0)
+        with spans.span("engine.prefill", wave=self.waves, B=B, T=T,
+                        prompt_tokens=sum(lens)) as sp:
+            cache = self.model.init_cache(B, self.S)
+            logits, cache = self.model.prefill(torch.from_numpy(toks), cache)
+            nxt = self._greedy(logits)
+        self.stats["prefill_s"].append(sp.seconds)
         t = T
         active = {i: r for i, r in enumerate(wave)}
         for i, r in active.items():
@@ -106,11 +111,14 @@ class Engine:
             cur = np.zeros((B, 1, *book), np.int32)
             for i, r in active.items():
                 cur[i, 0] = r.out_tokens[-1]
-            t0 = time.perf_counter()
-            lg, cache = self.model.decode_step(cache, torch.from_numpy(cur),
-                                               t)
-            nxt = self._greedy(lg)
-            self.stats["decode_s"].append(time.perf_counter() - t0)
+            with spans.span("engine.decode") as sp:
+                tok = torch.from_numpy(cur)
+                # the call alone: the last step's state is freed after it
+                with spans.span("lm.decode_step"):
+                    out = self.model.decode_step(cache, tok, t)
+                lg, cache = out
+                nxt = self._greedy(lg)
+            self.stats["decode_s"].append(sp.seconds)
             t += 1
             for i, r in list(active.items()):
                 r.out_tokens.append(_tok_out(nxt[i], multik))
