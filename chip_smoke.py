@@ -69,7 +69,10 @@ it fails, and each of which prints its wall time:
    slots, prompts of 4 to 255 tokens, 16 new tokens); every request must
    return 16 tokens, and flash attention must launch once per layer per
    prefill wave (smollm), all on the tensor-core kernel, and the scan
-   likewise (falcon-mamba).  At full
+   likewise (falcon-mamba).  falcon-mamba's decode step is a CUDA graph:
+   its first step at a batch size captures it (the seconds are printed)
+   and every later one replays, in the served, the profiled and the
+   checked runs; every other arch decodes eagerly.  At full
    width and depth, prefill plus decode must match the forward at
    tests/test_models.py's tolerances with f32 weights (in bf16 the same
    errors are printed, beside the drift between two forwards of another
@@ -1464,14 +1467,38 @@ def consistency(torch, model, toks, check_tol: bool) -> dict:
     if check_tol:
         allclose(torch, logits[:, 0], full[:, Tp - 1], PREFILL_TOL,
                  "prefill vs forward")
+    paths = []
     for t in range(Tp, T):
         lg, cache = model.decode_step(cache, toks[:, t:t + 1], t)
+        paths.append(model.decode_path)
         errs["decode"] = max(errs["decode"], (lg[:, 0].float() - full[:, t])
                              .abs().max().item())
         if check_tol:
             allclose(torch, lg[:, 0], full[:, t], DECODE_TOL,
                      f"decode t={t} vs forward")
+    check(paths == graph_paths(model, len(paths)),
+          f"decode paths {paths} at batch {toks.shape[0]}")
     return errs
+
+
+def next_span_index(spans) -> int:
+    """The index the program's span log gives its next record."""
+    return spans.LOG[-1].index + 1 if spans.LOG else 0
+
+
+def decode_spans(spans, first: int) -> list:
+    """The ``lm.decode_step`` spans recorded from index ``first`` on."""
+    return [r for r in spans.LOG
+            if r.index >= first and r.name == "lm.decode_step"]
+
+
+def graph_paths(model, n: int, captured: bool = False) -> list:
+    """The paths ``n`` decode steps take at a new batch size: a capture
+    and replays where the model decodes as a CUDA graph (all replays where
+    it has ``captured`` that size), else eager steps."""
+    if not model.graphs_decode():
+        return ["eager"] * n
+    return (["replay"] if captured else ["capture"]) + ["replay"] * (n - 1)
 
 
 MROPE_PREFILL = dict(batch=4, seq=256, decode=16)
@@ -1531,6 +1558,8 @@ def phase_serve(torch, get_config, LM, launch_serve, Engine, flash, scan,
     import dataclasses
 
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.obs import spans
     out = {}
     for arch, n_layers, per_wave, kernel_name, n_prof, f32_cut, *more in archs:
         opts = more[0] if more else {}
@@ -1567,6 +1596,7 @@ def phase_serve(torch, get_config, LM, launch_serve, Engine, flash, scan,
         for k in (flash, scan, *others):
             k.launches = 0                                   # path starts
         flash.launches_by_path.update(tensor_core=0, cuda_core=0)
+        first = next_span_index(spans)
         eng, done, wall = serve(eng, SERVE["requests"])
         torch.cuda.synchronize()
         launches = {"flash": flash.launches, "scan": scan.launches}
@@ -1585,6 +1615,14 @@ def phase_serve(torch, get_config, LM, launch_serve, Engine, flash, scan,
         tokens = sum(len(r.out_tokens) for r in done)
         pre_s, dec_s = eng.stats["prefill_s"], eng.stats["decode_s"]
         waves = eng.waves
+        # falcon-mamba's decode step is one CUDA graph a batch size: the
+        # first step captures it, every later one replays
+        steps = decode_spans(spans, first)
+        paths = [r.attrs["graph"] for r in steps]
+        check(paths == graph_paths(model, len(dec_s)),
+              f"{arch}: decode paths {paths}")
+        capture_s = steps[0].seconds if paths[0] == "capture" else None
+        graph = model.graphs_decode()
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
         # the card's busy share over a second, profiled run of n_prof
@@ -1594,11 +1632,15 @@ def phase_serve(torch, get_config, LM, launch_serve, Engine, flash, scan,
         eng2 = Engine(cfg, model=model, max_batch=SERVE["max_batch"],
                       max_seq=max_seq)
         t_prof = time.perf_counter()
+        first = next_span_index(spans)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t1 = time.perf_counter()
             serve(eng2, n_prof)
             torch.cuda.synchronize()
             prof_wall = (time.perf_counter() - t1) * 1e3
+        paths = [r.attrs["graph"] for r in decode_spans(spans, first)]
+        check(paths == graph_paths(model, len(paths), captured=True),
+              f"{arch}: profiled decode paths {paths}")
         evs = device_events(torch, prof)
         busy = sum(e.self_device_time_total for e in evs) / 1e3
         kern = sum(e.self_device_time_total for e in evs
@@ -1672,6 +1714,8 @@ def phase_serve(torch, get_config, LM, launch_serve, Engine, flash, scan,
             "prefill_ms_per_wave": [x * 1e3 for x in pre_s],
             "decode_ms_per_step": sum(dec_s) * 1e3 / len(dec_s),
             "decode_ms_per_token": sum(dec_s) * 1e3 / (tokens - len(done)),
+            "decode_graph": graph,
+            "decode_capture_s": capture_s,
             "peak_memory_gb": peak_gb, "profiled_requests": n_prof,
             "profiled_wall_ms": prof_wall, "device_busy_ms": busy,
             "device_busy_share": busy / prof_wall, "device_launches": n_evs,

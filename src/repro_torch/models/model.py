@@ -46,12 +46,18 @@ each call, so the conv state takes the dtype its concatenation promotes to,
 as the reference's scan output does.  As in the reference, KV and MLA
 caches and conv states start as bf16 even for f32 parameters, and ``h`` is
 f32.
+
+On the card, the ``ssm`` pattern's decode step is a CUDA graph per batch
+size (``decode_step``): its cache is a recurrent state of a fixed size in
+every layer, which a step reads and replaces whatever its position, so the
+step's shapes and addresses do not depend on ``t``.  Every other pattern
+writes its KV caches at the host integer ``t``, and decodes eagerly.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, Mapping, NamedTuple, Optional, Tuple, \
-    Union
+from typing import Any, Callable, Dict, List, Mapping, NamedTuple, \
+    Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -237,6 +243,12 @@ class LM(nn.Module):
             self.shared = attn(params["shared"])
         tail = ssm if pat.kind == "hybrid" else attn
         self.tail = nn.ModuleList(tail(p) for p in params.get("tail") or [])
+        # the decode graphs by batch size, and whether this model decodes
+        # through them (``graphs_decode``)
+        self._graphs: Dict[int, DecodeGraph] = {}
+        self._graph_ok: Optional[bool] = None
+        # the path of the last ``decode_step``: "capture", "replay", "eager"
+        self.decode_path: Optional[str] = None
 
     def _check_layers(self, params: Mapping[str, Any]) -> None:
         """``ValueError`` unless the tree holds the pattern's layers."""
@@ -343,7 +355,8 @@ class LM(nn.Module):
         parameters, each leaf moved to the device in its own dtype: the
         optimizer's new params are bf16 whatever the model's dtype, as in
         the reference.  A DTensor parameter keeps its placements: the new
-        leaf is redistributed to them (``set_param``)."""
+        leaf is redistributed to them (``set_param``).  The decode graphs,
+        which read the old parameters, are dropped."""
         from torch.distributed.tensor import DTensor
         got, want = T.leaves(params), T.leaves(self.parameter_tree())
         if len(got) != len(want):
@@ -357,6 +370,8 @@ class LM(nn.Module):
                 set_param(p, new.redistribute(p.device_mesh, p.placements))
             else:
                 p.data = new.to(self.device)
+        self._graphs.clear()
+        self._graph_ok = None
 
     # ----------------------------------------------------------------- cache
     def _attn_cache(self, batch: int, max_seq: int):
@@ -581,7 +596,32 @@ class LM(nn.Module):
                     ) -> Tuple[torch.Tensor, Cache]:
         """token: (B, 1) (or (B, 1, K)) at position ``t``, embedded from the
         token table; M-RoPE takes ``t`` on all three streams.  Logits
-        (B, 1, V) (or (B, 1, K, V))."""
+        (B, 1, V) (or (B, 1, K, V)).
+
+        Where ``graphs_decode`` holds, the step replays a CUDA graph of
+        batch size B, captured at B's first step (``decode_path``
+        "capture"; after it "replay", and "eager" off the graph): the
+        token is copied into the graph's buffer and, unless ``cache`` is
+        the cache the graph returned, ``cache`` into its state.  The
+        logits and the cache returned are then the graph's own buffers,
+        valid until this model's next ``decode_step`` at B."""
+        if not self.graphs_decode():
+            self.decode_path = "eager"
+            return self._decode_eager(cache, token, t)
+        g = self._graphs.get(token.shape[0])
+        if g is None or (cache is not g.cache and not self._fits(cache, g)):
+            g = self._capture(cache, token)
+            self.decode_path = "capture"
+        else:
+            self.decode_path = "replay"
+        g.token.copy_(token)
+        if cache is not g.cache:
+            _stack_into(g.banks, cache["blocks"])
+        g.graph.replay()
+        return g.logits, g.cache
+
+    def _decode_eager(self, cache: Cache, token: torch.Tensor, t: int
+                      ) -> Tuple[torch.Tensor, Cache]:
         x = self.embed(token)
         B = x.shape[0]
         positions = torch.full((B, 1), t, device=self.device)
@@ -589,6 +629,111 @@ class LM(nn.Module):
                       if self.cfg.mrope else None)
         x, cache, _ = self.backbone(x, positions, cache, t, positions3)
         return self.unembed(x), cache
+
+    # ---------------------------------------------------------- decode graph
+    def graphs_decode(self) -> bool:
+        """Whether ``decode_step`` runs as a CUDA graph: the model is on a
+        CUDA device, its pattern is ``ssm`` (every layer's cache entry is a
+        recurrent state of a fixed size), and no parameter is a DTensor (the
+        sharded path stays eager).  Read once, and again after
+        ``load_params``."""
+        if self._graph_ok is None:
+            self._graph_ok = (self.device.type == "cuda"
+                              and self.pattern.kind == "ssm"
+                              and not any(is_dtensor(p)
+                                          for p in self.parameters()))
+        return self._graph_ok
+
+    def _state_dtype(self, x: torch.Tensor) -> torch.dtype:
+        """The dtype of a state leaf after a step from ``x``: a conv state
+        takes what its concatenation with the activations promotes to, as
+        ``decode_step``'s eager path gives it; ``h`` stays f32."""
+        return torch.promote_types(x.dtype, self.io["embed"].dtype)
+
+    def _fits(self, cache: Cache, g: "DecodeGraph") -> bool:
+        """Whether ``cache`` can be copied into ``g``'s state as the eager
+        step would read it: as many layers, and each field of a layer's
+        state in the shape and the dtype a step gives its bank."""
+        layers = cache["blocks"]
+        return len(layers) == len(g.banks[0]) and all(
+            x.shape == bank.shape[1:] and self._state_dtype(x) == bank.dtype
+            for state in layers for x, bank in zip(state, g.banks))
+
+    def _decode_into(self, token: torch.Tensor, cache: Cache,
+                     banks: Tuple[torch.Tensor, ...]) -> torch.Tensor:
+        """The step a decode graph holds: the logits of ``token`` (ids on
+        the device) from ``cache`` (views of ``banks``), with the new state
+        written over the banks."""
+        x, new, _ = self.backbone(self.embed(token), None, cache)
+        _stack_into(banks, new["blocks"])
+        return self.unembed(x)
+
+    def _capture(self, cache: Cache, token: torch.Tensor) -> "DecodeGraph":
+        """Capture batch size B's decode graph over static buffers, which
+        first hold ``cache`` and ``token`` for the warm-up: the state as
+        one bank a field of a layer's state (every layer's conv state in
+        one tensor, every layer's ``h`` in another, each in the dtype a
+        step gives), and the cache of views of them that ``decode_step``
+        returns.  It replaces any graph B had; the model's graphs share one
+        memory pool, which goes with the last of them."""
+        layers = cache["blocks"]
+        banks = tuple(torch.empty((len(layers), *x.shape),
+                                  dtype=self._state_dtype(x),
+                                  device=self.device) for x in layers[0])
+        state = {"blocks": [type(s)(*(bank[i] for bank in banks))
+                            for i, s in enumerate(layers)]}
+        tok = torch.empty(token.shape, dtype=torch.long, device=self.device)
+        tok.copy_(token)
+        _stack_into(banks, layers)
+        pool = next(iter(self._graphs.values())).graph.pool() \
+            if self._graphs else None
+        graph, logits = capture(lambda: self._decode_into(tok, state, banks),
+                                self.device, pool)
+        g = self._graphs[token.shape[0]] = DecodeGraph(graph, tok, banks,
+                                                       state, logits)
+        return g
+
+
+class DecodeGraph(NamedTuple):
+    """A batch size's decode step as a CUDA graph, and its static buffers,
+    which each ``graph.replay()`` reads and rewrites: the token ids (B, 1)
+    int64, the state's banks, the cache of views of them (the cache
+    ``decode_step`` returns) and the logits."""
+    graph: Any
+    token: torch.Tensor
+    banks: Tuple[torch.Tensor, ...]
+    cache: Cache
+    logits: torch.Tensor
+
+
+def _stack_into(banks: Tuple[torch.Tensor, ...], layers: list) -> None:
+    """Each field of every layer's state into its bank: one stacking copy a
+    field, where a copy a leaf would launch one kernel a layer."""
+    for f, bank in enumerate(banks):
+        torch.stack([state[f] for state in layers], out=bank)
+
+
+def capture(body: Callable[[], torch.Tensor], device: torch.device, pool
+            ) -> Tuple[Any, torch.Tensor]:
+    """``body`` run once on a side stream (cuBLAS's handle and workspace
+    made, the allocator warm), then captured on that stream into a CUDA
+    graph whose memory comes from ``pool`` (a new pool where it is None):
+    (the graph, body's output, which each ``replay`` rewrites).  Unlike
+    ``torch.cuda.graph``, it leaves the allocator's cache of free blocks as
+    it is, so the next prefill finds them there."""
+    current = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(current)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        body()
+        graph.capture_begin(pool=pool)
+        try:
+            out = body()
+        finally:
+            graph.capture_end()
+    current.wait_stream(side)
+    return graph, out
 
 
 def set_param(p: nn.Parameter, new: torch.Tensor) -> None:

@@ -14,7 +14,9 @@ token.  They are the durations of the engine's coarse spans
 (``repro_torch.obs.spans``): ``engine.prefill`` from the cache's creation
 to the wave's first tokens on the host, and ``engine.decode`` for a step,
 with the child ``lm.decode_step`` around the call into the model, which
-returns once the step's work is enqueued.
+returns once the step's work is enqueued; its ``graph`` attr is the path
+the model reports (``LM.decode_path``): "capture" or "replay" where the
+step is a CUDA graph, else "eager".
 
 A config with K codebooks (musicgen) takes prompts (T, K), decodes a
 (B, 1, K) token a step, and returns each step's K ids as a list, as the
@@ -114,8 +116,9 @@ class Engine:
             with spans.span("engine.decode") as sp:
                 tok = torch.from_numpy(cur)
                 # the call alone: the last step's state is freed after it
-                with spans.span("lm.decode_step"):
+                with spans.span("lm.decode_step") as inner:
                     out = self.model.decode_step(cache, tok, t)
+                    inner.attrs["graph"] = self.model.decode_path
                 lg, cache = out
                 nxt = self._greedy(lg)
             self.stats["decode_s"].append(sp.seconds)

@@ -17,7 +17,9 @@ Two ranks (``torch_gloo.sharded2``), smoke configs in f32:
   within 1e-5 too;
 * a checkpoint saved by either package, restored, placed on (model 2) by
   ``load_for_mesh`` and gathered back: equal to the saved arrays bit for
-  bit.
+  bit;
+* falcon-mamba-7b on (model 2): its DTensor parameters keep its decode
+  step off the CUDA graph, which the plain model would take on the card.
 
 Four ranks (``torch_gloo.sharded4``), a 2 x 2 mesh: qwen3-moe-30b-a3b's
 smoke ``moe_forward`` with the JAX package's weights equals the
@@ -152,6 +154,12 @@ def test_sharded_forward_matches_single_process(two, arch, shape):
     r = _ok(two[f"forward {arch} {shape}"])
     np.testing.assert_allclose(r["got"], r["want"], atol=FWD_TOL,
                                rtol=FWD_TOL)
+
+
+def test_a_sharded_model_decodes_eagerly(two):
+    """A model with DTensor parameters stays off the decode graph, which
+    the same model unsharded would take on the card."""
+    assert _ok(two["decode graph"]) == {"plain": True, "sharded": False}
 
 
 def test_heads_sharded_forward(two):

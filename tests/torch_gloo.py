@@ -255,8 +255,22 @@ def sharded2(rank, world, ckpts):
         ("train hoist", lambda: _train("smollm-135m",
                                        {"data": 2, "model": 1}, True)),
         ("restore", lambda: _restore(ckpts, {"data": 1, "model": 2})),
+        ("decode graph", _decode_graph),
     ]
     return _cases(cases)
+
+
+def _decode_graph():
+    """Whether falcon-mamba-7b's plain and sharded models would decode as a
+    CUDA graph, their rule read as on a CUDA device (no kernel run)."""
+    import torch
+    _, plain, _, _, model = _setup("falcon-mamba-7b",
+                                   {"data": 1, "model": 2})
+    out = {}
+    for name, lm in (("plain", plain), ("sharded", model)):
+        lm.device = torch.device("cuda")
+        out[name] = lm.graphs_decode()
+    return out
 
 
 def _moe(ref_path):
