@@ -4,12 +4,19 @@ One dataclass describes every architecture in the pool (dense GQA, MLA+MoE,
 sliding-window/global hybrids, Mamba1/2 SSMs, Zamba2-style shared-attention
 hybrids, multi-codebook audio LMs, M-RoPE VLM backbones).  The block pattern is
 derived from the config; models are built by ``repro_torch.models.model``.
+
+The fields of ``ModelConfig``, ``SSMConfig`` and ``MoEConfig`` mirror the JAX
+package's, key for key.  The port's own options live on subclasses:
+``MixedConfig`` (a per-layer schedule of mixer and FFN, Jamba's, whose
+attention has no rotary embedding) and ``SSMNormConfig`` (Mamba1 with an
+RMSNorm over dt, B and C).  The modules read them through ``option``, which
+gives their off values for every other config, the JAX package's included.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Optional, Tuple
+from typing import Any, ClassVar, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -28,7 +35,7 @@ class MoEConfig:
     top_k: int = 6
     n_shared: int = 0              # shared (always-on) experts
     d_ff_expert: int = 1408
-    capacity_factor: float = 1.25
+    capacity_factor: Optional[float] = 1.25   # None: dropless
     first_dense_layers: int = 0    # leading dense layers (deepseek-v2)
     d_ff_dense: int = 0            # ffn width of those dense layers
     router_norm_topk: bool = True  # normalize top-k weights to sum to 1
@@ -46,9 +53,37 @@ class SSMConfig:
 
 
 @dataclass(frozen=True)
+class SSMNormConfig(SSMConfig):
+    """Mamba1 whose dt, B and C pass an RMSNorm (eps ``norm_eps``, scales of
+    widths dt rank, d_state and d_state) between ``x_proj`` and their use,
+    dt before ``dt_proj`` (Jamba's mixer)."""
+    dt_bc_norm: ClassVar[bool] = True
+
+
+@dataclass(frozen=True)
 class HybridConfig:
     """Zamba2-style weight-shared attention block interleaved with SSM layers."""
     shared_attn_every: int = 6     # invoke the shared block after every N ssm layers
+
+
+@dataclass(frozen=True)
+class ScheduleConfig:
+    """Each layer's mixer and FFN by period and offset (the rule of the HF
+    ``JambaConfig``): layer i mixes by attention where ``i % attn_period ==
+    attn_offset`` and by Mamba1 elsewhere; its FFN is a mixture of experts
+    where ``i % expert_period == expert_offset`` and a dense MLP elsewhere."""
+    attn_period: int
+    attn_offset: int
+    expert_period: int
+    expert_offset: int
+
+    def plan(self, n_layers: int) -> Tuple[Tuple[str, str], ...]:
+        """(mixer, ffn) of each layer: mixer "attn" or "mamba1", ffn "moe"
+        or "mlp"."""
+        return tuple(
+            ("attn" if i % self.attn_period == self.attn_offset else "mamba1",
+             "moe" if i % self.expert_period == self.expert_offset else "mlp")
+            for i in range(n_layers))
 
 
 @dataclass(frozen=True)
@@ -151,8 +186,40 @@ class ModelConfig:
         return self.with_(**kw, name=self.name + "-smoke")
 
 
+@dataclass(frozen=True)
+class MixedConfig(ModelConfig):
+    """A stack of pre-norm layers that each pair a mixer with an FFN by
+    ``schedule`` (Jamba): ``x += mixer(rmsnorm(x)); x += ffn(rmsnorm(x))``,
+    the mixer GQA attention without positional encoding or Mamba1
+    (``ssm``), the FFN a gated MLP of width ``d_ff`` or the experts of
+    ``moe``."""
+    schedule: Optional[ScheduleConfig] = None
+    use_rope: ClassVar[bool] = False
+
+    def layer_plan(self) -> Tuple[Tuple[str, str], ...]:
+        return self.schedule.plan(self.n_layers)
+
+    def layer_kinds(self) -> Tuple[str, ...]:
+        return tuple("attn" if m == "attn" else "ssm"
+                     for m, _ in self.layer_plan())
+
+
+# the port's own options at their off values: what ``option`` gives for a
+# config whose class lacks them
+_OFF = {"schedule": None, "use_rope": True, "dt_bc_norm": False}
+
+
+def option(cfg: Any, name: str) -> Any:
+    """The port-only option ``name`` of ``cfg`` (a ``ModelConfig`` for
+    ``schedule`` and ``use_rope``, an ``SSMConfig`` for ``dt_bc_norm``), or
+    its off value where the config's class has no such option."""
+    return getattr(cfg, name, _OFF[name])
+
+
 def param_count(cfg: ModelConfig) -> Tuple[int, int]:
     """(total_params, active_params) — analytic, for roofline MODEL_FLOPS."""
+    if option(cfg, "schedule") is not None:
+        return _mixed_param_count(cfg)
     d = cfg.d_model
     total = 0
     active = 0
@@ -231,4 +298,32 @@ def param_count(cfg: ModelConfig) -> Tuple[int, int]:
         n_sites = cfg.n_layers // cfg.hybrid.shared_attn_every
         active += shared * max(1, n_sites)  # executed at every call-site
     # final norm ~ negligible
+    return total, active
+
+
+def _mixed_param_count(cfg: MixedConfig) -> Tuple[int, int]:
+    """``param_count`` of a ``MixedConfig``, leaf for leaf as the port's
+    tree holds it: every norm scale, Mamba1's conv bias and dt bias, and the
+    router counted; the active count takes the top-k experts of each MoE."""
+    d, V, hd = cfg.d_model, cfg.vocab_size, cfg.head_dim
+    s, m = cfg.ssm, cfg.moe
+    d_in = s.expand * d
+    r = max(1, d // 16)
+    mamba = (2 * d * d_in + (s.d_conv + 1) * d_in + d_in * (r + 2 * s.d_state)
+             + r * d_in + d_in + d_in * s.d_state + d_in + d_in * d)
+    if s.dt_bc_norm:
+        mamba += r + 2 * s.d_state
+    attn = d * hd * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
+    expert = 3 * d * m.d_ff_expert
+    total = active = V * d * (1 if cfg.tie_embeddings else 2) + d
+    for mixer, ffn in cfg.layer_plan():
+        mix = 2 * d + (attn if mixer == "attn" else mamba)
+        total += mix
+        active += mix
+        if ffn == "moe":
+            total += d * m.n_routed + expert * (m.n_routed + m.n_shared)
+            active += d * m.n_routed + expert * (m.top_k + m.n_shared)
+        else:
+            total += 3 * d * cfg.d_ff
+            active += 3 * d * cfg.d_ff
     return total, active

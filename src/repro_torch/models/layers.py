@@ -39,7 +39,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.axes import constrain
-from repro_torch.models.config import MLAConfig, ModelConfig
+from repro_torch.models.config import MLAConfig, ModelConfig, option
 
 Params = Mapping[str, torch.Tensor]
 NEG_INF = -1e30
@@ -191,7 +191,8 @@ def attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
     into the cache in place (cast to its dtype), and the same cache is
     returned.  A windowed layer whose cache is no longer than its window
     keeps a ring buffer.  ``positions3`` (3, B, T) rotates q and k by
-    M-RoPE where the config has it."""
+    M-RoPE where the config has it; a config without ``use_rope`` (the
+    mixed pattern's) rotates neither."""
     B, T, _ = x.shape
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
@@ -221,7 +222,7 @@ def attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
     if cfg.mrope and positions3 is not None:
         q = apply_mrope(q, positions3, cfg.rope_theta, cfg.mrope_sections)
         k = apply_mrope(k, positions3, cfg.rope_theta, cfg.mrope_sections)
-    else:
+    elif option(cfg, "use_rope"):
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
 

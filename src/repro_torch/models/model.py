@@ -1,7 +1,7 @@
 """Decoder LM: init, forward, loss, prefill, decode.
 
 A port of the JAX package's ``models/model.py`` for all five of its layer
-patterns (``derive_pattern``):
+patterns (``derive_pattern``), and a sixth of the port's own:
 
 * ``uniform_attn`` with GQA attention (smollm-135m, qwen3-14b with qk-norm,
   starcoder2-15b; qwen2-vl-7b with M-RoPE over the frontend's embeddings,
@@ -15,7 +15,11 @@ patterns (``derive_pattern``):
   windowed layers keep ring-buffer caches of the window's length;
 * ``hybrid`` (zamba2-1.2b): groups of ``group_local`` Mamba2 layers, each
   group followed by one weight-shared attention block (with a KV cache per
-  call site), then a tail of Mamba2 layers.
+  call site), then a tail of Mamba2 layers;
+* ``mixed`` (a ``MixedConfig``: Jamba): a list of blocks, each a mixer
+  (GQA attention or Mamba1) and an FFN (a gated MLP or a mixture of
+  experts) as the config's schedule gives them per layer; the cache holds
+  a ``KVCache`` or a ``Mamba1State`` by layer.
 
 The reference scans over stacked parameter banks to keep its compiled
 graph small; here each layer is an ``nn.Module`` in an ``nn.ModuleList``,
@@ -40,10 +44,11 @@ mapping: ``{"tokens"}`` or, where the config has ``embed_inputs=False``,
 beside them.  Caches mirror the parameter tree: ``{"blocks": [per-layer
 state]}`` plus ``"lead"``; ``{"groups": [{"local": [...], "global": ...}],
 "tail": [...]}``; or ``{"groups": [[...]], "shared": [per call site],
-"tail": [...]}``.  KV and MLA caches are written in place (the new entries
-cast to the cache's dtype); an SSM layer's state is replaced by the new one
-each call, so the conv state takes the dtype its concatenation promotes to,
-as the reference's scan output does.  As in the reference, KV and MLA
+"tail": [...]}``; the mixed pattern's ``blocks`` hold either kind of
+state.  KV and MLA caches are written in place (the new entries cast to the
+cache's dtype); an SSM layer's state is replaced by the new one each call,
+so the conv state takes the dtype its concatenation promotes to, as the
+reference's scan output does.  As in the reference, KV and MLA
 caches and conv states start as bf16 even for f32 parameters, and ``h`` is
 f32.
 
@@ -70,7 +75,7 @@ from repro_torch.models import layers as L
 from repro_torch.models.axes import constrain
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ModelConfig, option
 
 Cache = Dict[str, Any]
 Inputs = Union[torch.Tensor, Mapping[str, Any]]
@@ -79,7 +84,7 @@ Inputs = Union[torch.Tensor, Mapping[str, Any]]
 # ===================================================================== pattern
 class Pattern(NamedTuple):
     """Static description of the layer stack (derived from cfg)."""
-    kind: str            # uniform_attn | local_global | moe | ssm | hybrid
+    kind: str  # uniform_attn | local_global | moe | ssm | hybrid | mixed
     n_scan: int          # layers in the main bank
     n_lead: int = 0
     n_groups: int = 0
@@ -88,6 +93,8 @@ class Pattern(NamedTuple):
 
 
 def derive_pattern(cfg: ModelConfig) -> Pattern:
+    if option(cfg, "schedule") is not None:
+        return Pattern("mixed", n_scan=cfg.n_layers)
     if cfg.family == "ssm":
         return Pattern("ssm", n_scan=cfg.n_layers)
     if cfg.hybrid is not None:
@@ -144,12 +151,16 @@ class ParamTree(nn.Module):
         return out
 
 
-def init_attn_block(gen: torch.Generator, cfg: ModelConfig, dtype,
-                    use_moe: bool = False, dense_ff: int = 0) -> dict:
+def init_block(gen: torch.Generator, cfg: ModelConfig, dtype,
+               use_moe: bool = False, dense_ff: int = 0,
+               mixer: str = "attn") -> dict:
     p = {"ln1": L.init_rmsnorm(cfg.d_model, dtype, gen.device),
-         "ln2": L.init_rmsnorm(cfg.d_model, dtype, gen.device),
-         "attn": (L.init_mla(gen, cfg, dtype) if cfg.mla is not None
-                  else L.init_attention(gen, cfg, dtype))}
+         "ln2": L.init_rmsnorm(cfg.d_model, dtype, gen.device)}
+    if mixer == "mamba1":
+        p["ssm"] = SSM.init_mamba1(gen, cfg, dtype)
+    else:
+        p["attn"] = (L.init_mla(gen, cfg, dtype) if cfg.mla is not None
+                     else L.init_attention(gen, cfg, dtype))
     if use_moe:
         p["moe"] = MOE.init_moe(gen, cfg, dtype)
     else:
@@ -157,10 +168,13 @@ def init_attn_block(gen: torch.Generator, cfg: ModelConfig, dtype,
     return p
 
 
-class AttnBlock(ParamTree):
-    """Pre-norm transformer block: ``ln1``, ``attn`` (GQA or MLA), ``ln2``,
-    then ``mlp`` or ``moe``.  Returns (x, new cache, aux loss), the aux loss
-    None for an MLP block (the reference's 0)."""
+class Block(ParamTree):
+    """Pre-norm block: ``ln1``, a mixer (``attn``: GQA or MLA; or, in the
+    mixed pattern, ``ssm``: Mamba1), ``ln2``, then ``mlp`` or ``moe``.
+    Returns (x, new cache, aux loss), the aux loss None for an MLP block
+    (the reference's 0).  A Mamba1 mixer's cache is its state, which it
+    replaces (``cache_index``, ``window`` and ``positions3`` do not reach
+    it)."""
 
     def __init__(self, cfg: ModelConfig, params: Mapping[str, Any]):
         super().__init__(params)
@@ -170,7 +184,9 @@ class AttnBlock(ParamTree):
                 window=None, positions3=None):
         cfg = self.cfg
         h = L.rmsnorm(self["ln1"], x, cfg.norm_eps)
-        if cfg.mla is not None:
+        if "ssm" in self._modules:
+            a, new_cache = SSM.mamba1_block(self["ssm"], cfg, h, cache)
+        elif cfg.mla is not None:
             a, new_cache = L.mla_attention(self["attn"], cfg, h, positions,
                                            cache, cache_index)
         else:
@@ -227,7 +243,7 @@ class LM(nn.Module):
         self._check_layers(params)
         self.io = ParamTree({k: v for k, v in params.items()
                              if k not in LAYER_KEYS})
-        attn = lambda p: AttnBlock(cfg, p)                   # noqa: E731
+        attn = lambda p: Block(cfg, p)                       # noqa: E731
         ssm = lambda p: SSMLayer(cfg, p)                     # noqa: E731
         self.lead = nn.ModuleList(attn(p) for p in params.get("lead") or [])
         self.blocks = nn.ModuleList(
@@ -254,7 +270,13 @@ class LM(nn.Module):
         """``ValueError`` unless the tree holds the pattern's layers."""
         pat, kind = self.pattern, self.pattern.kind
         n_tail = len(params.get("tail") or [])
-        if kind in ("local_global", "hybrid"):
+        if kind == "mixed":
+            have = [("attn" if "attn" in b else "mamba1",
+                     "moe" if "moe" in b else "mlp")
+                    for b in params.get("blocks") or []]
+            got = f"blocks of {have}"
+            ok = have == list(self.cfg.layer_plan())
+        elif kind in ("local_global", "hybrid"):
             groups = params["groups"]
             per = [len(g["local"] if kind == "local_global" else g)
                    for g in groups]
@@ -295,7 +317,7 @@ class LM(nn.Module):
                                                cfg.vocab_size), dtype)
 
         def attn(**kw):
-            return init_attn_block(gen, cfg, dtype, **kw)
+            return init_block(gen, cfg, dtype, **kw)
 
         def ssm():
             return init_ssm_layer(gen, cfg, dtype)
@@ -305,6 +327,9 @@ class LM(nn.Module):
 
         if pat.kind == "ssm":
             p["blocks"] = stack(pat.n_scan, ssm)
+        elif pat.kind == "mixed":
+            p["blocks"] = [attn(mixer=mixer, use_moe=ffn == "moe")
+                           for mixer, ffn in cfg.layer_plan()]
         elif pat.kind == "moe":
             if pat.n_lead:
                 p["lead"] = [attn(dense_ff=cfg.moe.d_ff_dense)
@@ -414,6 +439,10 @@ class LM(nn.Module):
         c: Cache = {}
         if pat.kind == "ssm":
             c["blocks"] = ssm(pat.n_scan)
+        elif pat.kind == "mixed":
+            c["blocks"] = [self._attn_cache(batch, max_seq) if mixer == "attn"
+                           else self._ssm_state(batch)
+                           for mixer, _ in cfg.layer_plan()]
         elif pat.kind == "local_global":
             w = min(cfg.sliding_window or max_seq, max_seq)
             c["groups"] = [{"local": kv(pat.group_local, w),
@@ -516,7 +545,11 @@ class LM(nn.Module):
                 node = node[key] if serving else None
             return node
 
-        if kind in ("uniform_attn", "moe"):
+        if kind == "mixed":
+            new_cache["blocks"] = stack(
+                self.blocks, lambda b, x, s: attn(b, x, s, None),
+                cached("blocks"))
+        elif kind in ("uniform_attn", "moe"):
             for name, window in (("lead", None),
                                  ("blocks", cfg.sliding_window)):
                 blocks = getattr(self, name)

@@ -1,4 +1,4 @@
-"""Mixture-of-Experts layer with sort-based capacity dispatch.
+"""Mixture-of-Experts layer: sort-based capacity dispatch, or dropless.
 
 A port of the dense path of the JAX package's ``models/moe.py``: the
 router in f32, top-k, a Switch-style load-balancing auxiliary loss, and a
@@ -7,6 +7,20 @@ takes at most ``C = moe_capacity(m, N)`` of the N tokens' K routings, in
 the sort's order (token by token, top choice first); the rest are dropped.
 The expert products are batched matmuls over the ``(E, C, d)`` buffer, as
 the reference computes them outside any kernel.
+
+Three paths, by the config and the input:
+
+* capacity dispatch (above), on one device;
+* the sharded capacity dispatch (below), over a mesh;
+* dropless (``MoEConfig.capacity_factor=None``, the port's own; Jamba's
+  published model drops nothing), on one device: the N K routings sorted
+  by expert, each expert's gated MLP on its contiguous run of rows (N K
+  rows in all, no padding), then the f32 combine.  On the card in bf16
+  the experts are three grouped products (``torch._grouped_mm``) over the
+  runs' ends, kept on the device; elsewhere a loop over the experts, whose
+  run lengths the host reads once a layer (one synchronisation).  While a
+  profiler runs it is the fine span ``moe.experts`` and holds the count
+  ``moe.load``, the routings per expert.
 
 The sharded path (``_moe_forward_sharded``, the reference's
 ``_moe_forward_shardmap``) runs where logical-axis rules are installed over
@@ -143,23 +157,87 @@ def _dispatch_ffn_combine(xf, top_w, top_i, w_gate, w_up, w_down,
     return gathered.reshape(N, K, d).sum(dim=1)
 
 
+def _grouped(x: torch.Tensor) -> bool:
+    """Whether the dropless experts run as grouped products: bf16 on the
+    card, which ``torch._grouped_mm`` takes; elsewhere they loop."""
+    return x.is_cuda and x.dtype == torch.bfloat16
+
+
+def _grouped_mlp(rows, load, w_gate, w_up, w_down) -> torch.Tensor:
+    """Each expert's gated MLP on its run of ``rows`` (sorted by expert,
+    ``load`` rows each, a tensor on the device) as three grouped products
+    over the runs' ends: no synchronisation.  The casts are ``mlp``'s."""
+    offs = torch.cumsum(load, 0).to(torch.int32)
+    g = torch._grouped_mm(rows, w_gate, offs=offs)
+    u = torch._grouped_mm(rows, w_up, offs=offs)
+    h = (F.silu(g.float()) * u.float()).to(rows.dtype)
+    return torch._grouped_mm(h, w_down, offs=offs)
+
+
+def _looped_mlp(rows, load, w_gate, w_up, w_down) -> torch.Tensor:
+    """The same as a loop over the experts on their runs, whose lengths
+    ``load`` the host holds."""
+    outs, start = [], 0
+    for e, n in enumerate(load):
+        if n:
+            outs.append(mlp({"w_gate": w_gate[e], "w_up": w_up[e],
+                             "w_down": w_down[e]}, rows[start:start + n]))
+            start += n
+    return torch.cat(outs)
+
+
+def _dropless_ffn_combine(xf, top_w, top_i, w_gate, w_up, w_down
+                          ) -> torch.Tensor:
+    """Every routing to its expert, none dropped.  xf: (N, d); top_w/top_i:
+    (N, K); w_*: (E, d, f)/(E, f, d).  The routings sorted by expert
+    (stable), each expert's gated MLP on its run of the sorted rows
+    (``_grouped_mlp`` where ``_grouped`` holds, else ``_looped_mlp``, which
+    reads the runs' lengths on the host: one synchronisation), the outputs
+    put back in routing order and combined in f32 over each token's K
+    routings, as the capacity path combines them.  Returns the (N, d) f32
+    output."""
+    N, d = xf.shape
+    K = top_i.shape[1]
+    with spans.fine("moe.experts"):
+        flat = top_i.reshape(-1)
+        order = torch.argsort(flat, stable=True)
+        load = _count(flat, w_gate.shape[0])
+        rows = xf[order // K]                               # (N K, d)
+        if _grouped(xf):
+            spans.count("moe.load", load)
+            out = _grouped_mlp(rows, load, w_gate, w_up, w_down)
+        else:
+            load = load.tolist()
+            spans.count("moe.load", load)
+            out = _looped_mlp(rows, load, w_gate, w_up, w_down)
+        y = torch.empty_like(rows)
+        y[order] = out                                      # routing order
+        return (y.float() * top_w.reshape(-1, 1)).reshape(N, K, d).sum(1)
+
+
 def moe_forward(p: Params, cfg: ModelConfig, x: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, T, d) -> (out (B, T, d), aux_loss f32 scalar): the sharded
     path under sharding rules with a DTensor ``x``, else the reference's
-    dense path on the full batch."""
+    dense path on the full batch, or the dropless path where the config has
+    no capacity factor."""
     m = cfg.moe
     B, T, d = x.shape
     N = B * T
     sharded = _sharded_moe_context(x, N)
     if sharded is not None:
+        if m.capacity_factor is None:
+            raise NotImplementedError("dropless experts run on one device")
         out, aux = _moe_forward_sharded(p, cfg, x, *sharded)
     else:
         xf = x.reshape(N, d)
         top_w, top_i, aux = _routing(p, m, xf)
-        out = _dispatch_ffn_combine(xf, top_w, top_i, p["w_gate"],
-                                    p["w_up"], p["w_down"], m,
-                                    moe_capacity(m, N))
+        ws = p["w_gate"], p["w_up"], p["w_down"]
+        if m.capacity_factor is None:
+            out = _dropless_ffn_combine(xf, top_w, top_i, *ws)
+        else:
+            out = _dispatch_ffn_combine(xf, top_w, top_i, *ws, m,
+                                        moe_capacity(m, N))
         out = out.to(x.dtype).reshape(B, T, d)
     if m.n_shared > 0:
         out = out + mlp(p["shared"], x)

@@ -9,7 +9,9 @@ recurrence of decode stays plain PyTorch.  All scan math is f32; the
 projections run in the parameters' dtype.  While a profiler runs, the f32
 pointwise stages around the scan are fine spans (``repro_torch.obs.spans``):
 ``mamba1.conv`` (the causal conv and SiLU) and ``mamba1.gate`` (``y + D xc``
-and the SiLU gate).
+and the SiLU gate).  Where the config's ``ssm.dt_bc_norm`` holds (Jamba's
+mixer), dt, B and C pass an RMSNorm each after ``x_proj``, dt before
+``dt_proj``; without it the block is as before, op for op.
 
 Mamba2 (zamba2) runs the reference's chunked SSD algorithm as eager
 PyTorch: the reference has no kernel for it either, and its products are
@@ -26,7 +28,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.mamba_scan.ops import selective_scan
 from repro_torch.models.axes import constrain
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ModelConfig, option
 from repro_torch.models.layers import (Params, _dense_init, init_rmsnorm,
                                        rmsnorm)
 from repro_torch.obs import spans
@@ -71,6 +73,10 @@ def init_mamba1(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
     dev = gen.device
     A = torch.arange(1, s.d_state + 1, dtype=torch.float32,
                      device=dev)[None].repeat(d_in, 1)
+    norms = {"dt_norm": init_rmsnorm(dt_rank, dtype, dev),
+             "b_norm": init_rmsnorm(s.d_state, dtype, dev),
+             "c_norm": init_rmsnorm(s.d_state, dtype, dev)} \
+        if option(s, "dt_bc_norm") else {}
     return {
         "in_x": _dense_init(gen, (d, d_in), dtype),
         "in_z": _dense_init(gen, (d, d_in), dtype),
@@ -82,6 +88,7 @@ def init_mamba1(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
         "A_log": torch.log(A),                             # (d_in, d_state)
         "D": torch.ones((d_in,), dtype=torch.float32, device=dev),
         "out_proj": _dense_init(gen, (d_in, d), dtype),
+        **norms,
     }
 
 
@@ -109,6 +116,10 @@ def mamba1_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
 
     proj = (xc.to(x.dtype) @ p["x_proj"]).float()
     dt, B_, C_ = torch.split(proj, [dt_rank, s.d_state, s.d_state], dim=-1)
+    if option(s, "dt_bc_norm"):
+        dt = rmsnorm(p["dt_norm"], dt, cfg.norm_eps)
+        B_ = rmsnorm(p["b_norm"], B_, cfg.norm_eps)
+        C_ = rmsnorm(p["c_norm"], C_, cfg.norm_eps)
     dt = F.softplus(dt @ p["dt_proj"].float() + p["dt_bias"])
     dt = constrain(dt, ("batch", "seq", "ssm_ch"))
     B_ = constrain(B_, ("batch", "seq", None))

@@ -12,11 +12,12 @@ each ending when its next tokens reach the host (which waits for the
 device), for the serving metrics: prefill time per wave, decode time per
 token.  They are the durations of the engine's coarse spans
 (``repro_torch.obs.spans``): ``engine.prefill`` from the cache's creation
-to the wave's first tokens on the host, and ``engine.decode`` for a step,
-with the child ``lm.decode_step`` around the call into the model, which
-returns once the step's work is enqueued; its ``graph`` attr is the path
-the model reports (``LM.decode_path``): "capture" or "replay" where the
-step is a CUDA graph, else "eager".
+to the wave's first tokens on the host, and ``engine.decode`` for a step
+(attrs ``live``, the sequences that take a token, and ``t``, its
+position), with the child ``lm.decode_step`` around the call into the
+model, which returns once the step's work is enqueued; its ``graph`` attr
+is the path the model reports (``LM.decode_path``): "capture" or "replay"
+where the step is a CUDA graph, else "eager".
 
 A config with K codebooks (musicgen) takes prompts (T, K), decodes a
 (B, 1, K) token a step, and returns each step's K ids as a list, as the
@@ -113,7 +114,7 @@ class Engine:
             cur = np.zeros((B, 1, *book), np.int32)
             for i, r in active.items():
                 cur[i, 0] = r.out_tokens[-1]
-            with spans.span("engine.decode") as sp:
+            with spans.span("engine.decode", live=len(active), t=t) as sp:
                 tok = torch.from_numpy(cur)
                 # the call alone: the last step's state is freed after it
                 with spans.span("lm.decode_step") as inner:
