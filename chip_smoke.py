@@ -5,10 +5,10 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It needs one CUDA card and ``nvcc``; it builds the port's four kernels (the
-integrity hash, the lane segment step, flash attention and the selective
-scan) from the repository's own sources, all at once, one ``nvcc`` each, on
-first use.  Phases, each of which ends the run with a non-zero exit code if
+It needs one CUDA card and ``nvcc``; it builds the port's kernel libraries
+(the integrity hash, the lane segment step, flash attention, the selective
+scan and Mamba1's fused decode step) from the repository's own sources, all
+at once, one ``nvcc`` each, on first use.  Phases, each of which ends the run with a non-zero exit code if
 it fails, and each of which prints its wall time:
 
 1. Device and build: the card's name and power limit, the kernels' builds
@@ -63,6 +63,13 @@ it fails, and each of which prints its wall time:
    on unaligned views; each case and layout timed as the profiler's device
    time per call beside the bound, with the layout ``layout_for`` picks
    and ptxas's registers and spills.
+8b. Mamba1's fused decode step: its conv-step and selective-state kernels
+   against their plain PyTorch versions on the card (the conv's outputs bit
+   for bit, h and y at ``STEP_TOL``) at falcon-mamba-7b's serve shape [16,
+   8192, 16, 256] in bf16 and f32 and phase 17's smoke serve [4, 256, 8, 8],
+   also with dt_bias, A_log and D in bf16; each kernel timed as the
+   profiler's device time per call over eight input sets in turn (past the
+   L2), beside its bytes bound and the plain versions' time.
 9. Serving, the third main path: smollm-135m and falcon-mamba-7b at their
    published configs with all layers, weights from the port's seeded init
    on the card, 8 requests through ``launch.serve`` and ``Engine`` (4
@@ -72,7 +79,9 @@ it fails, and each of which prints its wall time:
    likewise (falcon-mamba).  falcon-mamba's decode step is a CUDA graph:
    its first step at a batch size captures it (the seconds are printed)
    and every later one replays, in the served, the profiled and the
-   checked runs; every other arch decodes eagerly.  At full
+   checked runs; every other arch decodes eagerly.  The selective-state
+   step kernel launches twice a Mamba1 layer at the capture (its warm-up
+   and the capture) and never in a replay.  At full
    width and depth, prefill plus decode must match the forward at
    tests/test_models.py's tolerances with f32 weights (in bf16 the same
    errors are printed, beside the drift between two forwards of another
@@ -192,6 +201,7 @@ import sys
 import tempfile
 import time
 import types
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -1362,6 +1372,140 @@ def phase_scan(torch, kernel, ref, card: str) -> dict:
             "layout": main["layout"], "cases": timings, "card": card}
 
 
+# ------------------------------------------ Mamba1's fused decode step
+# (label, B, d_in, N, dt rank, activations): falcon-mamba-7b's serve shape
+# (the main path: 16 slots of the benchmark's cells), phase 17's smoke serve
+# (4 slots, 256 channels, 8 states), and the serve shape in f32 (phase 9's
+# f32 prefill/decode check)
+STEP_CASES = [("main", 16, 8192, 16, 256, "bfloat16"),
+              ("smoke", 4, 256, 8, 8, "bfloat16"),
+              ("f32", 16, 8192, 16, 256, "float32")]
+# input sets a timing cycles through, as the 64 layers of a step do: eight
+# of the main shape's ~25 MB pass the 50 MB L2
+STEP_SETS = 8
+STEP_TOL = {"h": dict(rtol=1e-4, atol=1e-4),          # tests/test_torch_
+            "bfloat16": dict(rtol=2 ** -7, atol=1e-4),  # mamba_step.py
+            "float32": dict(rtol=1e-4, atol=1e-4)}
+
+
+def step_inputs(torch, gen, B, C, N, R, dtype):
+    """(conv step's inputs, state step's inputs) as falcon-mamba's layer
+    makes them: the conv state a view of a longer window (as prefill leaves
+    it), dt, B and C views of one x_proj output, A = -(1..N), dt_proj of
+    unit rows; the state step's xc is drawn (the checks pass the conv's)."""
+    dev = gen.device
+
+    def rnd(*shape, scale=1.0, dt=torch.float32):
+        return (scale * torch.randn(*shape, generator=gen, device=dev)
+                ).to(dt)
+    conv_in = (rnd(B, 1, C, dt=dtype), rnd(B, 6, C, dt=dtype)[:, 3:],
+               rnd(4, C, scale=0.5, dt=dtype), rnd(C, scale=0.1, dt=dtype))
+    dt, Bm, Cm = torch.split(rnd(B, 1, R + 2 * N, dt=dtype), [R, N, N], -1)
+    A_log = torch.log(torch.arange(1, N + 1, dtype=torch.float32,
+                                   device=dev))[None].repeat(C, 1)
+    state_in = [dt, Bm, Cm, rnd(R, C, scale=R ** -0.5, dt=dtype),
+                rnd(C, scale=0.5), A_log, 1.0 + rnd(C, scale=0.1),
+                torch.nn.functional.silu(rnd(B, 1, C)), rnd(B, 1, C, dt=dtype),
+                rnd(B, C, N)]
+    return conv_in, state_in
+
+
+def step_bytes(B, C, N, R, elt: int) -> dict:
+    """Bytes each kernel of the step reads and writes once, at a conv of 4
+    taps and activations of ``elt`` bytes: the conv step's xz, state, taps,
+    bias, xc (f32, and in bf16 where elt is 2) and new state; the state
+    step's dt, B and C, dt_proj, dt_bias, A_log, D, xc, z, h both ways and
+    y."""
+    conv = (B * C * elt + 2 * 3 * B * C * elt + 5 * C * elt + 4 * B * C
+            + (B * C * elt if elt == 2 else 0))
+    state = (B * (R + 2 * N) * elt + R * C * elt + 2 * 4 * C + 4 * C * N
+             + 4 * B * C + B * C * elt + 2 * 4 * B * C * N + B * C * elt)
+    return {"mamba_conv_step_kernel": conv, "mamba_state_step_kernel": state}
+
+
+def phase_mamba_step(torch, step, ref, card: str) -> dict:
+    """Mamba1's fused decode step (``mamba_step.cu``): each kernel against
+    its plain version on the card at ``STEP_CASES`` (the conv's outputs bit
+    for bit, h and y at ``STEP_TOL``), also with dt_bias, A_log and D in
+    bf16; each timed as the profiler's device time per call over
+    ``STEP_SETS`` input sets in turn, beside its bytes bound and the plain
+    versions' time."""
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    step.LIBRARY.load()          # phase 1 printed its ptxas lines
+    cases = {}
+    for label, B, C, N, R, dt_name in STEP_CASES:
+        dtype = getattr(torch, dt_name)
+        sets = [step_inputs(torch, gen, B, C, N, R, dtype)
+                for _ in range(STEP_SETS)]
+        conv_in, state_in = sets[0]
+        got = step.conv_step_cuda(*conv_in)
+        want = ref.conv_step_torch(*conv_in)
+        check(all(a.dtype == b.dtype and torch.equal(a, b)
+                  for a, b in zip(got, want)),
+              f"step {label}: the conv kernel differs from the plain "
+              f"version")
+        errs = {}
+        for params in ("f32", "bf16"):
+            ins = state_in[:7] + [got[0]] + state_in[8:]
+            if params == "bf16":
+                ins[4:7] = [t.to(torch.bfloat16) for t in ins[4:7]]
+            y, h = step.state_step_cuda(*ins)
+            y2, h2 = ref.state_step_torch(*ins)
+            for what, a, b, tol in (("h", h, h2, STEP_TOL["h"]),
+                                    ("y", y, y2, STEP_TOL[dt_name])):
+                err = (a.float() - b.float()).abs().max().item()
+                check(torch.allclose(a.float(), b.float(), **tol),
+                      f"step {label} ({params} params): the state kernel's "
+                      f"{what} differs from the plain version by {err}")
+                errs[f"{what}_max_abs_err_{params}_params"] = err
+        turn = iter(range(10 ** 9))
+
+        def conv_call():
+            step.conv_step_cuda(*sets[next(turn) % STEP_SETS][0])
+
+        def state_call():
+            step.state_step_cuda(*sets[next(turn) % STEP_SETS][1])
+        bytes_ = step_bytes(B, C, N, R, dtype.itemsize)
+        kernels = {}
+        for name, call in (("mamba_conv_step_kernel", conv_call),
+                           ("mamba_state_step_kernel", state_call)):
+            ms, names = device_ms_per_call(torch, call, 64)
+            check(bool(names) and all(name in n for n in names),
+                  f"step {label}: launched {sorted(names)}, not only {name}")
+            b_ms, b_by = roofline(bytes_[name], B * C * N if "state" in name
+                                  else 0, PEAK_SFU_PER_S)
+            kernels[name] = {"ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+                             "bytes": bytes_[name],
+                             "roofline_share": b_ms / ms if ms else None}
+
+        def plain():
+            xc, _, _ = ref.conv_step_torch(*conv_in)
+            ref.state_step_torch(*state_in[:7], xc, *state_in[8:])
+        cases[label] = {"shape": [B, C, N, R], "dtype": dt_name, **errs,
+                        "kernels": kernels,
+                        "events_ms_per_step": cuda_ms(
+                            torch, lambda: (conv_call(), state_call()), 64),
+                        "plain_ms": cuda_ms(torch, plain, 5)}
+        log(f"[8b] step {label}: " + json.dumps(cases[label]))
+        del sets, conv_in, state_in
+    main = cases["main"]
+    k = main["kernels"]
+    ms = [v["ms"] for v in k.values()]
+    return {"name": "mamba_step", "route": "cuda",
+            "source": "src/repro_torch/kernels/mamba_scan/csrc/mamba_step.cu",
+            "replaces": "none: the JAX package's single decode step is jnp "
+                        "(src/repro/models/ssm.py mamba1_block, T == 1)",
+            "launches": None,
+            "ms": sum(ms) if all(m is not None for m in ms) else None,
+            "ms_source": "torch.profiler", "plain_ms": main["plain_ms"],
+            "bound_ms": sum(v["bound_ms"] for v in k.values()),
+            "bound_by": "bytes", "library_ms": None,
+            "library": "none: no single PyTorch call computes this step",
+            "shape": "falcon-mamba-7b serve [B=16, d_in=8192, N=16, R=256] "
+                     "bf16", "cases": cases, "card": card}
+
+
 # ------------------------------------------------------------ serving (3rd)
 # (arch, layers, flash and scan launches a prefill wave, the name of the
 # kernel its prefill launches, requests profiled, the f32 check's cut: its
@@ -1550,11 +1694,15 @@ def mrope_prefill(torch, model, flash, n_layers: int) -> dict:
 
 
 def phase_serve(torch, get_config, LM, launch_serve, Engine, flash, scan,
-                others, archs=SERVE_ARCHS, label: int = 9) -> dict:
+                others, archs=SERVE_ARCHS, label: int = 9,
+                step=None) -> dict:
     """Full-width serving through the engine on the card, of smollm-135m and
     falcon-mamba-7b (phase 9), of the MoE archs (phase 12) or of the last
     four families (phase 14), with every count set to 0 just before each
-    run and read just after."""
+    run and read just after.  ``step`` (``mamba_step``) is held to the
+    decode steps' paths: each Mamba1 mixer launches its selective-state
+    kernel once an eager step, twice a step that captures a graph (its
+    warm-up and the capture), and never in a replay."""
     import dataclasses
 
     from torch.profiler import ProfilerActivity, profile
@@ -1593,13 +1741,14 @@ def phase_serve(torch, get_config, LM, launch_serve, Engine, flash, scan,
         n_params = sum(p.numel() for p in model.parameters())
         eng = Engine(cfg, model=model, max_batch=SERVE["max_batch"],
                      max_seq=max_seq)
-        for k in (flash, scan, *others):
+        for k in (flash, scan, *others, *([step] if step else [])):
             k.launches = 0                                   # path starts
         flash.launches_by_path.update(tensor_core=0, cuda_core=0)
         first = next_span_index(spans)
         eng, done, wall = serve(eng, SERVE["requests"])
         torch.cuda.synchronize()
         launches = {"flash": flash.launches, "scan": scan.launches}
+        step_launches = step.launches if step else None
         by_path = dict(flash.launches_by_path)
         stray = sum(k.launches for k in others)              # path ends
         check(len(done) == SERVE["requests"] and all(
@@ -1621,6 +1770,14 @@ def phase_serve(torch, get_config, LM, launch_serve, Engine, flash, scan,
         paths = [r.attrs["graph"] for r in steps]
         check(paths == graph_paths(model, len(dec_s)),
               f"{arch}: decode paths {paths}")
+        if step:
+            per = {"capture": 2, "replay": 0, "eager": 1}
+            want_step = model.mamba1_layers * sum(per[p] for p in paths)
+            check(step_launches == want_step,
+                  f"{arch}: {step_launches} selective-state step launches, "
+                  f"want {want_step} for {model.mamba1_layers} Mamba1 "
+                  f"layers and decode paths {dict(Counter(paths))}")
+            launches["mamba_step"] = step_launches
         capture_s = steps[0].seconds if paths[0] == "capture" else None
         graph = model.graphs_decode()
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -2960,6 +3117,7 @@ def main() -> None:
     from repro_torch.kernels.lane_step import lane_step as lane_kernel
     from repro_torch.kernels.lane_step import ref as lane_ref
     from repro_torch.kernels.mamba_scan import mamba_scan as scan
+    from repro_torch.kernels.mamba_scan import mamba_step as step
     from repro_torch.kernels.mamba_scan import ops as scan_ops
     from repro_torch.kernels.mamba_scan import ref as scan_ref
     from repro_torch.launch import serve as launch_serve
@@ -2983,7 +3141,7 @@ def main() -> None:
         return result
 
     card = timed(1, phase_device_and_build, torch,
-                 (kernel, lane_kernel, flash, scan))
+                 (kernel, lane_kernel, flash, scan, step))
     entry = timed(2, phase_kernel, torch, np, kernel, ref, ops, integrity,
                   card)
     flash.launches = scan.launches = 0
@@ -3004,12 +3162,15 @@ def main() -> None:
     lane_entry["launches"] = ensemble["launches"]
     flash_entry = timed(7, phase_flash, torch, flash, flash_ref, card)
     scan_entry = timed(8, phase_scan, torch, scan, scan_ref, card)
+    step_entry = timed("8b", phase_mamba_step, torch, step, scan_ref, card)
     served = timed(9, phase_serve, torch, get_config, LM, launch_serve,
-                   Engine, flash, scan, (kernel, lane_kernel))
+                   Engine, flash, scan, (kernel, lane_kernel), step=step)
     flash_entry["launches"] = served["smollm-135m"]["launches"]["flash"]
     flash_entry["launches_by_path"] = served["smollm-135m"][
         "flash_launches_by_path"]
     scan_entry["launches"] = served["falcon-mamba-7b"]["launches"]["scan"]
+    step_entry["launches"] = served["falcon-mamba-7b"]["launches"][
+        "mamba_step"]
     grads = timed("10a", phase_train_grads, torch, flash, flash_ops,
                   flash_ref, scan, scan_ops, scan_ref)
     trained = timed(10, phase_train, torch, get_config, LM, Engine,
@@ -3035,7 +3196,7 @@ def main() -> None:
     log(f"[12] reduced: {MOE_CUTS}")
     moe_served = timed(12, phase_serve, torch, get_config, LM, launch_serve,
                        Engine, flash, scan, (kernel, lane_kernel),
-                       MOE_SERVE_ARCHS, 12)
+                       MOE_SERVE_ARCHS, 12, step=step)
     moe_trained = timed(13, phase_train_archs, torch, get_config, LM, loop,
                         adamw, kernels, flash, kernel, _CHUNK_BYTES,
                         MOE_TRAIN_ARCHS, 13, MOE_TRAIN_CUTS)
@@ -3050,7 +3211,8 @@ def main() -> None:
     log(f"[14] reduced: {FAMILY_CUTS}")
     family_served = timed(14, phase_serve, torch, get_config, LM,
                           launch_serve, Engine, flash, scan,
-                          (kernel, lane_kernel), FAMILY_SERVE_ARCHS, 14)
+                          (kernel, lane_kernel), FAMILY_SERVE_ARCHS, 14,
+                          step=step)
     family_trained = timed(15, phase_train_archs, torch, get_config, LM,
                            loop, adamw, kernels, flash, kernel, _CHUNK_BYTES,
                            FAMILY_TRAIN_ARCHS, 15, FAMILY_TRAIN_CUTS)
@@ -3096,7 +3258,7 @@ def main() -> None:
     log(f"phase walls (s): {json.dumps(walls)}")
     log(f"total wall {time.perf_counter() - t0:.1f} s [{card}]")
     print(json.dumps({"kernels": [entry, lane_entry, flash_entry,
-                                  scan_entry]}), flush=True)
+                                  scan_entry, step_entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -21,6 +21,15 @@ on detached inputs; its backward recomputes the recurrence eagerly
 (``scan_recurrence``) and returns ``torch.autograd.grad`` of that for u,
 dt, Bm, Cm, A and h0.  The JAX package has no backward kernel either: its
 gradient is ``jax.grad`` of its jnp scan.
+
+Decode's single step (T == 1, a state given) has two ops of its own,
+``conv_step`` and ``state_step``, which dispatch alike: CUDA tensors to the
+kernels of ``mamba_step.py`` or raise, CPU tensors to the plain versions
+(``ref.conv_step_torch``, ``ref.state_step_torch``: the model's eager step,
+op for op), meta tensors to the plain versions too (their products are
+counted as the eager step's were), DTensors to their local shards (the step
+is per channel and per row; Bm and Cm are read by every channel).  They are
+forward-only: decode runs under ``torch.no_grad``.
 """
 from __future__ import annotations
 
@@ -30,7 +39,11 @@ import torch
 
 from repro_torch.kernels import local
 from repro_torch.kernels.mamba_scan.mamba_scan import selective_scan_cuda
-from repro_torch.kernels.mamba_scan.ref import selective_scan_torch
+from repro_torch.kernels.mamba_scan.mamba_step import (conv_step_cuda,
+                                                       state_step_cuda)
+from repro_torch.kernels.mamba_scan.ref import (conv_step_torch,
+                                                selective_scan_torch,
+                                                state_step_torch)
 
 
 def scan_recurrence(u: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
@@ -110,3 +123,60 @@ def _sharded(*ins):
     local.check("selective_scan", ins, _SCAN_SPLITS,
                 "batch- or channel-sharded")
     return local.run_local(selective_scan, ins, (ins[0], ins[5]))
+
+
+# ------------------------------------------------- Mamba1's single decode step
+def conv_step(xz: torch.Tensor, state: torch.Tensor, w: torch.Tensor,
+              b: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One causal conv step and its SiLU: xz (B, 1, C), the conv state
+    (B, K-1, C), conv_w (K, C), conv_b (C,).  Returns (xc (B, 1, C) f32, xc
+    in xz's dtype, the new state), as ``ref.conv_step_torch``.  On the card a
+    state in a narrower dtype than xz's (an f32 model's fresh bf16 cache) is
+    widened first, as the eager concatenation promotes it."""
+    ins = (xz, state, w, b)
+    if local.is_dtensor(xz):
+        local.check("conv_step", ins, _CONV_SPLITS,
+                    "batch- or channel-sharded")
+        return local.run_local(conv_step, ins, (xz, xz, state))
+    if xz.device.type == "cuda":
+        if state.dtype != xz.dtype \
+                and torch.promote_types(state.dtype, xz.dtype) == xz.dtype:
+            state = state.to(xz.dtype)
+        return conv_step_cuda(xz, state, w, b)
+    if xz.device.type not in ("cpu", "meta"):
+        raise ValueError(f"no conv step for {xz.device}")
+    return conv_step_torch(*ins)
+
+
+def state_step(dt_low: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+               dt_proj: torch.Tensor, dt_bias: torch.Tensor,
+               A_log: torch.Tensor, D: torch.Tensor, xc: torch.Tensor,
+               z: torch.Tensor, h: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One selective-state step: dt_low (B, 1, R), Bm, Cm (B, 1, N),
+    dt_proj (R, C), dt_bias (C,), A_log (C, N), D (C,), xc (B, 1, C) f32, z
+    (B, 1, C), h (B, C, N) f32.  Returns (y (B, 1, C) in z's dtype, the new
+    h), as ``ref.state_step_torch``."""
+    ins = (dt_low, Bm, Cm, dt_proj, dt_bias, A_log, D, xc, z, h)
+    if local.is_dtensor(z):
+        local.check("state_step", ins, _STATE_SPLITS,
+                    "batch- or channel-sharded")
+        return local.run_local(state_step, ins, (z, h))
+    if z.device.type == "cuda":
+        return state_step_cuda(*ins)
+    if z.device.type not in ("cpu", "meta"):
+        raise ValueError(f"no state step for {z.device}")
+    return state_step_torch(*ins)
+
+
+# on one mesh dim, the placements that split a step into whole ones: batch
+# rows, or channels (conv_w, conv_b, dt_proj, dt_bias, A_log and D split with
+# them; dt_low, Bm and Cm are read by every channel); of (xz, state, conv_w,
+# conv_b), then of (dt_low, Bm, Cm, dt_proj, dt_bias, A_log, D, xc, z, h)
+_CONV_SPLITS = (("R",) * 4,
+                ("S0", "S0", "R", "R"),
+                ("S2", "S2", "S1", "S0"))
+_STATE_SPLITS = (("R",) * 10,
+                 ("S0", "S0", "S0", "R", "R", "R", "R", "S0", "S0", "S0"),
+                 ("R", "R", "R", "S1", "S0", "S0", "S0", "S2", "S2", "S1"))

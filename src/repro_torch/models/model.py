@@ -113,6 +113,20 @@ def derive_pattern(cfg: ModelConfig) -> Pattern:
     return Pattern("uniform_attn", n_scan=cfg.n_layers)
 
 
+def count_mamba1(cfg: ModelConfig) -> int:
+    """The layer stack's Mamba1 mixers: a ``mixed`` schedule's "mamba1"
+    layers, and every SSM layer of the ``ssm`` and ``hybrid`` patterns
+    whose SSM is Mamba1; none elsewhere."""
+    schedule = option(cfg, "schedule")
+    if schedule is not None:
+        return sum(mixer == "mamba1"
+                   for mixer, _ in schedule.plan(cfg.n_layers))
+    pat = derive_pattern(cfg)
+    if pat.kind not in ("ssm", "hybrid") or cfg.ssm.version != 1:
+        return 0
+    return pat.n_scan + pat.n_groups * pat.group_local + pat.n_tail
+
+
 # the parameter tree's keys that hold layers (the rest is ``LM.io``)
 LAYER_KEYS = ("blocks", "lead", "groups", "shared", "tail")
 
@@ -235,6 +249,9 @@ class LM(nn.Module):
         super().__init__()
         self.pattern = pat = derive_pattern(cfg)
         self.cfg = cfg
+        # the Mamba1 mixers a decode step runs, each one conv step and one
+        # selective-state step
+        self.mamba1_layers = count_mamba1(cfg)
         self.dtype = dtype
         self.remat = remat
         self.device = require_device(device)

@@ -4,14 +4,18 @@ A port of the JAX package's ``models/ssm.py``.  For Mamba1 at T > 1
 the scan goes to the selective-scan op (B4): the CUDA kernel for tensors on
 the card, its plain version on the CPU; it replaces the reference's chunked
 associative scan, which computes the same recurrence.  Its gradient on the
-card is the op's eager backward (``kernels/mamba_scan/ops.py``).  The single-step
-recurrence of decode stays plain PyTorch.  All scan math is f32; the
-projections run in the parameters' dtype.  While a profiler runs, the f32
-pointwise stages around the scan are fine spans (``repro_torch.obs.spans``):
-``mamba1.conv`` (the causal conv and SiLU) and ``mamba1.gate`` (``y + D xc``
-and the SiLU gate).  Where the config's ``ssm.dt_bc_norm`` holds (Jamba's
-mixer), dt, B and C pass an RMSNorm each after ``x_proj``, dt before
-``dt_proj``; without it the block is as before, op for op.
+card is the op's eager backward (``kernels/mamba_scan/ops.py``).  Decode's
+single step (T == 1, a state given) goes to the two step ops of the same
+module around the GEMVs: ``conv_step`` (the conv's step and SiLU) and
+``state_step`` (dt, the recurrence, the D skip and the SiLU gate), two
+CUDA kernels on the card and the eager step's plain PyTorch on the CPU.
+All scan math is f32; the projections run in the parameters' dtype.  While
+a profiler runs, the f32 pointwise stages around the scan are fine spans
+(``repro_torch.obs.spans``): ``mamba1.conv`` (the causal conv and SiLU) and
+``mamba1.gate`` (``y + D xc`` and the SiLU gate).  Where the config's
+``ssm.dt_bc_norm`` holds (Jamba's mixer), dt, B and C pass an RMSNorm each
+after ``x_proj``, dt before ``dt_proj``; without it the block is as before,
+op for op.
 
 Mamba2 (zamba2) runs the reference's chunked SSD algorithm as eager
 PyTorch: the reference has no kernel for it either, and its products are
@@ -26,7 +30,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.mamba_scan.ops import selective_scan
+from repro_torch.kernels.mamba_scan.ops import (conv_step, selective_scan,
+                                                state_step)
 from repro_torch.models.axes import constrain
 from repro_torch.models.config import ModelConfig, option
 from repro_torch.models.layers import (Params, _dense_init, init_rmsnorm,
@@ -108,6 +113,8 @@ def mamba1_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
     # channel, so they are replicated there
     xz = constrain(x @ p["in_x"], ("batch", "seq", "ssm_ch"))  # (B,T,d_in)
     z = constrain(x @ p["in_z"], ("batch", "seq", "ssm_ch"))
+    if T == 1 and state is not None:
+        return _mamba1_step(p, cfg, xz, z, state)
     conv_state = state.conv if state is not None else None
     with spans.fine("mamba1.conv"):
         xc, new_conv = causal_conv1d(xz, p["conv_w"], p["conv_b"],
@@ -129,17 +136,10 @@ def mamba1_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
     h0 = constrain(state.h if state is not None else xc.new_zeros(
         (B, d_in, s.d_state), dtype=torch.float32), ("batch", "ssm_ch",
                                                       None))
-    if T == 1 and state is not None:
-        # recurrent single step
-        a = torch.exp(dt[:, 0, :, None] * A)              # (B, d_in, n)
-        h = a * h0 + (dt[:, 0] * xc[:, 0])[..., None] * B_[:, 0, None, :]
-        y = torch.einsum("bdn,bn->bd", h, C_[:, 0])[:, None]
-        hT = h
-    else:
-        # A is bf16 once an optimizer step has cast A_log (as the
-        # reference's does); the scan takes it in f32, where the reference's
-        # dt * A promotes it
-        y, hT = selective_scan(xc, dt, B_, C_, A.float(), h0)
+    # A is bf16 once an optimizer step has cast A_log (as the reference's
+    # does); the scan takes it in f32, where the reference's dt * A
+    # promotes it
+    y, hT = selective_scan(xc, dt, B_, C_, A.float(), h0)
     with spans.fine("mamba1.gate"):
         y = y + p["D"] * xc
         y = y * F.silu(z.float())
@@ -147,6 +147,39 @@ def mamba1_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
     new_state = (Mamba1State(new_conv, hT)
                  if (return_state or state is not None) else None)
     return out, new_state
+
+
+def _mamba1_step(p: Params, cfg: ModelConfig, xz: torch.Tensor,
+                 z: torch.Tensor, state: Mamba1State
+                 ) -> Tuple[torch.Tensor, Mamba1State]:
+    """Decode's recurrent single step from ``state``: xz and z (B, 1, d_in)
+    are the input's two projections.  The conv step, ``x_proj`` and the
+    selective-state step; under sharding rules every per-channel operand
+    splits with the channels, and dt, B and C are replicated over them."""
+    s = cfg.ssm
+    dt_rank = p["dt_proj"].shape[0]
+    ch = ("ssm_ch",)
+    xc, xc_act, new_conv = conv_step(
+        xz, state.conv, constrain(p["conv_w"], (None, *ch)),
+        constrain(p["conv_b"], ch))
+    proj = xc_act @ p["x_proj"]
+    if option(s, "dt_bc_norm"):
+        dt, B_, C_ = torch.split(proj.float(),
+                                 [dt_rank, s.d_state, s.d_state], dim=-1)
+        dt = rmsnorm(p["dt_norm"], dt, cfg.norm_eps)
+        B_ = rmsnorm(p["b_norm"], B_, cfg.norm_eps)
+        C_ = rmsnorm(p["c_norm"], C_, cfg.norm_eps)
+    else:
+        # read as they lie, in the activations' dtype: the step widens them
+        dt, B_, C_ = torch.split(proj, [dt_rank, s.d_state, s.d_state],
+                                 dim=-1)
+    dt, B_, C_ = (constrain(v, ("batch", "seq", None)) for v in (dt, B_, C_))
+    y, h = state_step(
+        dt, B_, C_, constrain(p["dt_proj"], (None, *ch)),
+        constrain(p["dt_bias"], ch), constrain(p["A_log"], (*ch, None)),
+        constrain(p["D"], ch), xc, z,
+        constrain(state.h, ("batch", "ssm_ch", None)))
+    return y @ p["out_proj"], Mamba1State(new_conv, h)
 
 
 # ================================================================== Mamba2

@@ -17,7 +17,9 @@ to the wave's first tokens on the host, and ``engine.decode`` for a step
 position), with the child ``lm.decode_step`` around the call into the
 model, which returns once the step's work is enqueued; its ``graph`` attr
 is the path the model reports (``LM.decode_path``): "capture" or "replay"
-where the step is a CUDA graph, else "eager".
+where the step is a CUDA graph, else "eager"; its ``mamba1_layers`` attr is
+the model's count of Mamba1 mixers (``LM.mamba1_layers``), each of which a
+step runs once.
 
 A config with K codebooks (musicgen) takes prompts (T, K), decodes a
 (B, 1, K) token a step, and returns each step's K ids as a list, as the
@@ -117,7 +119,8 @@ class Engine:
             with spans.span("engine.decode", live=len(active), t=t) as sp:
                 tok = torch.from_numpy(cur)
                 # the call alone: the last step's state is freed after it
-                with spans.span("lm.decode_step") as inner:
+                with spans.span("lm.decode_step", mamba1_layers=self.model
+                                .mamba1_layers) as inner:
                     out = self.model.decode_step(cache, tok, t)
                     inner.attrs["graph"] = self.model.decode_path
                 lg, cache = out

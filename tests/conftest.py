@@ -21,3 +21,9 @@ def jax_subprocess_env(devices=None, x64=False):
     if x64:
         env["JAX_ENABLE_X64"] = "1"
     return env
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "card: needs a CUDA card (the port's kernels run only "
+        "there); such a test skips itself elsewhere")

@@ -19,7 +19,10 @@ Two ranks (``torch_gloo.sharded2``), smoke configs in f32:
   ``load_for_mesh`` and gathered back: equal to the saved arrays bit for
   bit;
 * falcon-mamba-7b on (model 2): its DTensor parameters keep its decode
-  step off the CUDA graph, which the plain model would take on the card.
+  step off the CUDA graph, which the plain model would take on the card;
+  on (data 2) and (model 2) its prefill and three decode steps equal the
+  single-process ones within 1e-4, the Mamba1 step's ops handed each
+  rank's rows or channels.
 
 Four ranks (``torch_gloo.sharded4``), a 2 x 2 mesh: qwen3-moe-30b-a3b's
 smoke ``moe_forward`` with the JAX package's weights equals the
@@ -152,6 +155,20 @@ def _ok(result):
                                    "{'data': 1, 'model': 2}"])
 def test_sharded_forward_matches_single_process(two, arch, shape):
     r = _ok(two[f"forward {arch} {shape}"])
+    np.testing.assert_allclose(r["got"], r["want"], atol=FWD_TOL,
+                               rtol=FWD_TOL)
+
+
+@pytest.mark.parametrize("shape, local", [
+    ("{'data': 2, 'model': 1}", [((2, 1, 256), (2, 256, 8))]),
+    ("{'data': 1, 'model': 2}", [((4, 1, 128), (4, 128, 8))])])
+def test_sharded_mamba1_decode_steps_match_single_process(two, shape,
+                                                          local):
+    """falcon-mamba-7b's decode steps on the mesh run the Mamba1 step on
+    each rank's rows or channels (its plain version here, its kernels on
+    the card) and equal the single-process steps."""
+    r = _ok(two[f"decode falcon-mamba-7b {shape}"])
+    assert r["local_z_h"] == local and r["steps"] == 3 * 4   # 4 layers
     np.testing.assert_allclose(r["got"], r["want"], atol=FWD_TOL,
                                rtol=FWD_TOL)
 

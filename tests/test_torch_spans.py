@@ -139,8 +139,9 @@ def test_engine_spans_are_its_stats(log):
     for d, s in zip(dec, step):
         assert s.parent == d.index and d.parent is None
         assert d.start <= s.start <= s.end <= d.end
-        # the path the model took: the CPU decodes eagerly
-        assert s.attrs == {"graph": "eager"}
+        # the path the model took (the CPU decodes eagerly) and the
+        # model's Mamba1 mixers, each of which the step runs once
+        assert s.attrs == {"graph": "eager", "mamba1_layers": cfg.n_layers}
     assert eng.stats["prefill_s"] == [p.seconds for p in pre]
     assert eng.stats["decode_s"] == [d.seconds for d in dec]
     # no profiler: the mixer's fine spans took no record

@@ -257,7 +257,52 @@ def sharded2(rank, world, ckpts):
         ("restore", lambda: _restore(ckpts, {"data": 1, "model": 2})),
         ("decode graph", _decode_graph),
     ]
+    for shape in ({"data": 2, "model": 1}, {"data": 1, "model": 2}):
+        cases.append((f"decode falcon-mamba-7b {shape}",
+                      lambda s=shape: _decode(s)))
     return _cases(cases)
+
+
+def _decode(shape, B=4, T=12, steps=3):
+    """falcon-mamba-7b's prefill of T tokens and ``steps`` decode steps on
+    the mesh beside the plain model's decode logits, and the local shapes
+    of (z, h) that the Mamba1 step's plain version was handed."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.checkpoint.elastic import load_for_mesh
+    from repro_torch.kernels.mamba_scan import ops
+    from repro_torch.launch import shardings as SH
+    from repro_torch.models.axes import logical_axis_rules
+    cfg, plain, mesh, _, model = _setup("falcon-mamba-7b", shape)
+    toks = _tokens(cfg, B, T + steps, 2)
+
+    def serve(lm, place=lambda x: x, cache=None):
+        cache = lm.init_cache(B, T + steps) if cache is None else cache
+        _, cache = lm.prefill(place(toks[:, :T]), cache)
+        out = []
+        for t in range(T, T + steps):
+            lg, cache = lm.decode_step(cache, place(toks[:, t:t + 1]), t)
+            out.append(_arr(lg))
+        return np.stack(out)
+    want = serve(plain)
+    rules = SH.logical_rules(mesh, B, cfg)
+    cache = model.init_cache(B, T + steps)
+    cache = load_for_mesh(cache, mesh, SH.cache_specs(cache, B, T + steps,
+                                                      mesh, rules["batch"]))
+    seen, real = [], ops.state_step_torch
+
+    def step(*ins):
+        seen.append((tuple(ins[8].shape), tuple(ins[9].shape)))
+        return real(*ins)
+    ops.state_step_torch = step
+    try:
+        with implicit_replication(), logical_axis_rules(mesh, rules):
+            got = serve(model, lambda x: _place(x, mesh, rules["batch"],
+                                                None), cache)
+    finally:
+        ops.state_step_torch = real
+    return {"got": got, "want": want, "local_z_h": sorted(set(seen)),
+            "steps": len(seen)}
 
 
 def _decode_graph():
