@@ -29,7 +29,10 @@ reference's: ``blocks`` and the MoE ``lead`` are lists of layers;
 ``groups`` a list of ``{"local": [layers], "global": layer}`` (local_global)
 or of lists of layers (hybrid); ``shared`` one block; ``tail`` a list of
 layers, or None where there is none, as the reference's ``stack_init``
-gives.  Parameters start frozen (``requires_grad=False``), and serving runs
+gives.  ``plan_stack`` reads that layout from the config once: the layers
+in the order they run, each with its parameters' place in the tree, its
+module, its window and its cache's kind and place; the model walks it.
+Parameters start frozen (``requires_grad=False``), and serving runs
 under ``no_grad``.  A trainer calls ``requires_grad_()`` and differentiates
 ``loss_fn``: the kernels' ops then go through their ``autograd.Function``s,
 whose backward is eager PyTorch.  ``load_params`` writes a parameter tree
@@ -41,22 +44,18 @@ its train mode.
 Inputs are token ids (B, T), or (B, T, K) for K codebooks, or a batch
 mapping: ``{"tokens"}`` or, where the config has ``embed_inputs=False``,
 ``{"embeds"}`` from the frontend, with M-RoPE's ``positions3`` (3, B, T)
-beside them.  Caches mirror the parameter tree: ``{"blocks": [per-layer
-state]}`` plus ``"lead"``; ``{"groups": [{"local": [...], "global": ...}],
-"tail": [...]}``; or ``{"groups": [[...]], "shared": [per call site],
-"tail": [...]}``; the mixed pattern's ``blocks`` hold either kind of
-state.  KV and MLA caches are written in place (the new entries cast to the
-cache's dtype); an SSM layer's state is replaced by the new one each call,
-so the conv state takes the dtype its concatenation promotes to, as the
-reference's scan output does.  As in the reference, KV and MLA
-caches and conv states start as bf16 even for f32 parameters, and ``h`` is
-f32.
+beside them.  Caches mirror the parameter tree, with a state a call site
+under ``shared`` and no part without layers.  KV and MLA caches are
+written in place (the new entries cast to the cache's dtype); an SSM
+layer's state is replaced by the new one each call, so the conv state
+takes the dtype its concatenation promotes to, as the reference's scan
+output does.  As in the reference, KV and MLA caches and conv states start
+as bf16 even for f32 parameters, and ``h`` is f32.
 
-On the card, the ``ssm`` pattern's decode step is a CUDA graph per batch
-size (``decode_step``): its cache is a recurrent state of a fixed size in
-every layer, which a step reads and replaces whatever its position, so the
-step's shapes and addresses do not depend on ``t``.  Every other pattern
-writes its KV caches at the host integer ``t``, and decodes eagerly.
+On the card, a stack whose cache is recurrent (``StackPlan.recurrent``:
+the ``ssm`` pattern's) decodes as a CUDA graph per batch size
+(``decode_step``).  Every other stack writes KV caches at the host integer
+``t``, and decodes eagerly.
 """
 from __future__ import annotations
 
@@ -113,18 +112,141 @@ def derive_pattern(cfg: ModelConfig) -> Pattern:
     return Pattern("uniform_attn", n_scan=cfg.n_layers)
 
 
+Path = Tuple[Union[str, int], ...]
+
+
+class Layer(NamedTuple):
+    """One layer of the stack as ``plan_stack`` lays it out.  Its mixer
+    names its cache: a ``KVCache`` (a ring of ``ring`` positions where that
+    is set), an ``MLACache``, a ``Mamba1State`` or a ``Mamba2State``."""
+    params: Path              # its parameters in the tree, its module in LM
+    mixer: str                # "attn", "mla", "mamba1" or "mamba2"
+    ffn: Optional[str]        # "mlp", "dense" (the MoE lead's width) or
+    #                           "moe" for a ``Block``; None for an SSMLayer
+    window: Optional[int]     # attention's window
+    cache: Optional[Path]     # its state in the cache tree
+    ring: Optional[int]       # a KV ring's length (at most the cache's)
+    positions3: bool          # whether M-RoPE's ids reach it
+
+
+class StackPlan(NamedTuple):
+    """The layer stack of a config: ``layers`` in the order they run;
+    ``params`` the parameter tree's layer keys with each layer's ``Layer``
+    at its place (the hybrid's shared block once, where no call site may
+    run it); ``cache`` the cache tree with each call site's ``Layer`` at
+    its state's place."""
+    pattern: Pattern
+    layers: Tuple[Layer, ...]
+    params: Dict[str, Any]
+    cache: Dict[str, Any]
+
+    @property
+    def recurrent(self) -> bool:
+        """Whether the cache is the list ``blocks`` of one recurrent state
+        a layer, all of one kind: a step reads and replaces it whatever its
+        position, so its shapes and addresses do not depend on ``t``."""
+        return (len({layer.mixer for layer in self.layers}) == 1
+                and self.layers[0].mixer in ("mamba1", "mamba2")
+                and list(self.cache) == ["blocks"])
+
+    @property
+    def mamba1(self) -> int:
+        """The Mamba1 mixers (a step runs each once)."""
+        return sum(layer.mixer == "mamba1" for layer in self.layers)
+
+
+def plan_stack(cfg: ModelConfig) -> StackPlan:
+    """The layout of ``cfg``'s layer stack, read from its pattern."""
+    pat = derive_pattern(cfg)
+    w = cfg.sliding_window
+    attn = "mla" if cfg.mla is not None else "attn"
+    layers: List[Layer] = []
+
+    def add(path, mixer, ffn, window=None, ring=None, p3=False):
+        layers.append(Layer(path, mixer, ffn, window, path, ring, p3))
+        return layers[-1]
+
+    def run(key, n, *args, **kw):
+        return [add((*key, i), *args, **kw) for i in range(n)] or None
+
+    if pat.kind == "mixed":
+        params = {"blocks": [add(("blocks", i), attn if m == "attn" else m, f)
+                             for i, (m, f) in enumerate(cfg.layer_plan())]}
+    elif pat.kind == "ssm":
+        params = {"blocks": run(("blocks",), pat.n_scan,
+                                f"mamba{cfg.ssm.version}", None)}
+    elif pat.kind in ("uniform_attn", "moe"):
+        params = {"lead": run(("lead",), pat.n_lead, attn, "dense",
+                              p3=True)} if pat.n_lead else {}
+        params["blocks"] = run(("blocks",), pat.n_scan, attn,
+                               "moe" if pat.kind == "moe" else "mlp", w,
+                               p3=True)
+    elif pat.kind == "local_global":
+        params = {"groups": [
+            {"local": run(("groups", g, "local"), pat.group_local, attn,
+                          "mlp", w, w),
+             "global": add(("groups", g, "global"), attn, "mlp")}
+            for g in range(pat.n_groups)],
+            "tail": run(("tail",), pat.n_tail, attn, "mlp", w, w)}
+    else:                                                # hybrid
+        ssm = f"mamba{cfg.ssm.version}"
+        shared = Layer(("shared",), attn, "mlp", None, None, None, False)
+        groups = []
+        for g in range(pat.n_groups):
+            groups.append(run(("groups", g), pat.group_local, ssm, None))
+            layers.append(shared._replace(cache=("shared", g)))
+        params = {"groups": groups, "shared": shared,
+                  "tail": run(("tail",), pat.n_tail, ssm, None)}
+    cache = {k: v for k, v in params.items() if v is not None}
+    if "shared" in cache:                      # a state a call site
+        cache["shared"] = [x for x in layers if x.params == ("shared",)]
+    return StackPlan(pat, tuple(layers), params, cache)
+
+
 def count_mamba1(cfg: ModelConfig) -> int:
     """The layer stack's Mamba1 mixers: a ``mixed`` schedule's "mamba1"
     layers, and every SSM layer of the ``ssm`` and ``hybrid`` patterns
     whose SSM is Mamba1; none elsewhere."""
-    schedule = option(cfg, "schedule")
-    if schedule is not None:
-        return sum(mixer == "mamba1"
-                   for mixer, _ in schedule.plan(cfg.n_layers))
-    pat = derive_pattern(cfg)
-    if pat.kind not in ("ssm", "hybrid") or cfg.ssm.version != 1:
-        return 0
-    return pat.n_scan + pat.n_groups * pat.group_local + pat.n_tail
+    return plan_stack(cfg).mamba1
+
+
+def _map(fn: Callable[[Layer], Any], node):
+    """A plan's tree with ``fn`` of each ``Layer`` in its place, the
+    ``Layer``s taken in the tree's order."""
+    if isinstance(node, Layer):
+        return fn(node)
+    if isinstance(node, dict):
+        return {k: _map(fn, v) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_map(fn, v) for v in node]
+    return None
+
+
+def _at(tree, path: Path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def _layout(node):
+    """The layers of a parameter tree, or of a plan's, each as "ssm" (an
+    SSMLayer) or a ``Block``'s (mixer key, FFN key); None for a part
+    without any."""
+    if isinstance(node, Layer):
+        node = dict.fromkeys(("ln",) if node.ffn is None else (
+            "ln1", "ssm" if node.mixer == "mamba1" else "attn", node.ffn))
+    if isinstance(node, Mapping):
+        if "ln" in node:
+            return "ssm"
+        if "ln1" in node:
+            return ("ssm" if "ssm" in node else "attn",
+                    "moe" if "moe" in node else "mlp")
+        out = {k: v for k, x in node.items()
+               if (v := _layout(x)) is not None}
+        return out or None
+    if isinstance(node, list):
+        return [_layout(x) for x in node] or None
+    return None
 
 
 # the parameter tree's keys that hold layers (the rest is ``LM.io``)
@@ -247,11 +369,12 @@ class LM(nn.Module):
                  params: Optional[Mapping[str, Any]] = None, seed: int = 0,
                  remat: bool = True):
         super().__init__()
-        self.pattern = pat = derive_pattern(cfg)
+        self.plan = plan_stack(cfg)
+        self.pattern = self.plan.pattern
         self.cfg = cfg
         # the Mamba1 mixers a decode step runs, each one conv step and one
         # selective-state step
-        self.mamba1_layers = count_mamba1(cfg)
+        self.mamba1_layers = self.plan.mamba1
         self.dtype = dtype
         self.remat = remat
         self.device = require_device(device)
@@ -260,22 +383,17 @@ class LM(nn.Module):
         self._check_layers(params)
         self.io = ParamTree({k: v for k, v in params.items()
                              if k not in LAYER_KEYS})
-        attn = lambda p: Block(cfg, p)                       # noqa: E731
-        ssm = lambda p: SSMLayer(cfg, p)                     # noqa: E731
-        self.lead = nn.ModuleList(attn(p) for p in params.get("lead") or [])
-        self.blocks = nn.ModuleList(
-            (ssm if pat.kind == "ssm" else attn)(p)
-            for p in params.get("blocks") or [])
-        if pat.kind == "local_global":
-            self.groups = nn.ModuleList(nn.ModuleDict({
-                "local": nn.ModuleList(attn(p) for p in g["local"]),
-                "global": attn(g["global"])}) for g in params["groups"])
-        elif pat.kind == "hybrid":
-            self.groups = nn.ModuleList(nn.ModuleList(ssm(p) for p in g)
-                                        for g in params["groups"])
-            self.shared = attn(params["shared"])
-        tail = ssm if pat.kind == "hybrid" else attn
-        self.tail = nn.ModuleList(tail(p) for p in params.get("tail") or [])
+        mods = _map(lambda layer: (Block if layer.ffn else SSMLayer)(
+            cfg, _at(params, layer.params)), self.plan.params)
+        # (an empty list where the plan has no such part)
+        self.lead = _module_tree(mods.get("lead"))
+        self.blocks = _module_tree(mods.get("blocks"))
+        self.groups = _module_tree(mods.get("groups"))
+        self.shared = _module_tree(mods.get("shared"))
+        self.tail = _module_tree(mods.get("tail"))
+        # each layer in the order it runs, with its module
+        self._layers = tuple((layer, _at(self._modules, layer.params))
+                            for layer in self.plan.layers)
         # the decode graphs by batch size, and whether this model decodes
         # through them (``graphs_decode``)
         self._graphs: Dict[int, DecodeGraph] = {}
@@ -284,31 +402,12 @@ class LM(nn.Module):
         self.decode_path: Optional[str] = None
 
     def _check_layers(self, params: Mapping[str, Any]) -> None:
-        """``ValueError`` unless the tree holds the pattern's layers."""
-        pat, kind = self.pattern, self.pattern.kind
-        n_tail = len(params.get("tail") or [])
-        if kind == "mixed":
-            have = [("attn" if "attn" in b else "mamba1",
-                     "moe" if "moe" in b else "mlp")
-                    for b in params.get("blocks") or []]
-            got = f"blocks of {have}"
-            ok = have == list(self.cfg.layer_plan())
-        elif kind in ("local_global", "hybrid"):
-            groups = params["groups"]
-            per = [len(g["local"] if kind == "local_global" else g)
-                   for g in groups]
-            got = (f"{len(groups)} groups of {per} and a tail of {n_tail}")
-            ok = (len(groups) == pat.n_groups and n_tail == pat.n_tail
-                  and all(n == pat.group_local for n in per))
-        else:
-            n_lead = len(params.get("lead") or [])
-            n_blocks = len(params.get("blocks") or [])
-            got = f"{n_lead} lead and {n_blocks} blocks"
-            ok = (n_lead == pat.n_lead
-                  and n_lead + n_blocks == self.cfg.n_layers)
-        if not ok:
-            raise ValueError(f"{got} for {self.cfg.n_layers} layers "
-                             f"({pat})")
+        """``ValueError`` unless the tree holds the plan's layers."""
+        got = _layout({k: params.get(k) for k in LAYER_KEYS})
+        want = _layout(self.plan.params)
+        if got != want:
+            raise ValueError(f"a tree of layers {got} for the plan of "
+                             f"{self.cfg.n_layers} layers: {want}")
 
     # ------------------------------------------------------------------ init
     def init(self, seed: int) -> dict:
@@ -316,7 +415,7 @@ class LM(nn.Module):
         with ``seed``: the reference's shapes, dtypes and scales, not its
         numbers (``jax.random`` draws others).  On the meta device, the
         shapes and dtypes alone."""
-        cfg, dtype, pat = self.cfg, self.dtype, self.pattern
+        cfg, dtype = self.cfg, self.dtype
         gen = (L.MetaGenerator() if self.device.type == "meta" else
                torch.Generator(device=self.device).manual_seed(seed))
         K = cfg.n_codebooks
@@ -333,54 +432,20 @@ class LM(nn.Module):
             p["lm_head"] = L._dense_init(gen, (*books, cfg.d_model,
                                                cfg.vocab_size), dtype)
 
-        def attn(**kw):
-            return init_block(gen, cfg, dtype, **kw)
-
-        def ssm():
-            return init_ssm_layer(gen, cfg, dtype)
-
-        def stack(n, fn):
-            return [fn() for _ in range(n)] or None
-
-        if pat.kind == "ssm":
-            p["blocks"] = stack(pat.n_scan, ssm)
-        elif pat.kind == "mixed":
-            p["blocks"] = [attn(mixer=mixer, use_moe=ffn == "moe")
-                           for mixer, ffn in cfg.layer_plan()]
-        elif pat.kind == "moe":
-            if pat.n_lead:
-                p["lead"] = [attn(dense_ff=cfg.moe.d_ff_dense)
-                             for _ in range(pat.n_lead)]
-            p["blocks"] = stack(pat.n_scan, lambda: attn(use_moe=True))
-        elif pat.kind == "local_global":
-            p["groups"] = [{"local": stack(pat.group_local, attn),
-                            "global": attn()} for _ in range(pat.n_groups)]
-            p["tail"] = stack(pat.n_tail, attn)
-        elif pat.kind == "hybrid":
-            p["groups"] = [stack(pat.group_local, ssm)
-                           for _ in range(pat.n_groups)]
-            p["shared"] = attn()
-            p["tail"] = stack(pat.n_tail, ssm)
-        else:
-            p["blocks"] = stack(pat.n_scan, attn)
+        def draw(layer):
+            if layer.ffn is None:
+                return init_ssm_layer(gen, cfg, dtype)
+            return init_block(
+                gen, cfg, dtype, use_moe=layer.ffn == "moe",
+                dense_ff=cfg.moe.d_ff_dense if layer.ffn == "dense" else 0,
+                mixer=layer.mixer)
+        p.update(_map(draw, self.plan.params))
         return p
 
     def _trees(self, of) -> dict:
         out = dict(of(self.io))
-        kind = self.pattern.kind
-        if self.pattern.n_lead:
-            out["lead"] = [of(b) for b in self.lead]
-        if kind == "local_global":
-            out["groups"] = [{"local": [of(b) for b in g["local"]],
-                              "global": of(g["global"])}
-                             for g in self.groups]
-        elif kind == "hybrid":
-            out["groups"] = [[of(b) for b in g] for g in self.groups]
-            out["shared"] = of(self.shared)
-        else:
-            out["blocks"] = [of(b) for b in self.blocks] or None
-        if kind in ("local_global", "hybrid"):
-            out["tail"] = [of(b) for b in self.tail] or None
+        out.update(_map(lambda layer: of(_at(self._modules, layer.params)),
+                        self.plan.params))
         return out
 
     def params(self, device=None) -> dict:
@@ -416,67 +481,37 @@ class LM(nn.Module):
         self._graph_ok = None
 
     # ----------------------------------------------------------------- cache
-    def _attn_cache(self, batch: int, max_seq: int):
-        cfg, dev = self.cfg, self.device
+    def _state(self, layer: Layer, batch: int, max_seq: int):
+        """A layer's zero cache: its KV (ring) or MLA cache, or its SSM
+        state."""
+        cfg = self.cfg
 
-        def zeros(*shape):
-            return torch.zeros(shape, dtype=torch.bfloat16, device=dev)
-        if cfg.mla is not None:
-            return L.MLACache(zeros(batch, max_seq, cfg.mla.kv_lora_rank),
-                              zeros(batch, max_seq, cfg.mla.qk_rope_head_dim))
-        shape = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
-        return L.KVCache(zeros(*shape), zeros(*shape))
-
-    def _ssm_state(self, batch: int):
-        s, dev = self.cfg.ssm, self.device
-        d_in = s.expand * self.cfg.d_model
-        if s.version == 1:
+        def zeros(*shape, dtype=torch.bfloat16):
+            return torch.zeros(shape, dtype=dtype, device=self.device)
+        seq = min(layer.ring or max_seq, max_seq)
+        if layer.mixer == "mla":
+            return L.MLACache(zeros(batch, seq, cfg.mla.kv_lora_rank),
+                              zeros(batch, seq, cfg.mla.qk_rope_head_dim))
+        if layer.mixer == "attn":
+            shape = (batch, seq, cfg.n_kv_heads, cfg.head_dim)
+            return L.KVCache(zeros(*shape), zeros(*shape))
+        s = cfg.ssm
+        d_in = s.expand * cfg.d_model
+        if layer.mixer == "mamba1":
             conv, h = d_in, (d_in, s.d_state)
             state = SSM.Mamba1State
         else:
             conv = d_in + 2 * s.n_groups * s.d_state
             h = (d_in // s.headdim, s.headdim, s.d_state)
             state = SSM.Mamba2State
-        return state(
-            torch.zeros((batch, s.d_conv - 1, conv), dtype=torch.bfloat16,
-                        device=dev),
-            torch.zeros((batch, *h), dtype=torch.float32, device=dev))
+        return state(zeros(batch, s.d_conv - 1, conv),
+                     zeros(batch, *h, dtype=torch.float32))
 
     def init_cache(self, batch: int, max_seq: int) -> Cache:
         """Zero caches for ``batch`` sequences of up to ``max_seq``
         positions; a windowed layer's ring holds min(window, max_seq)."""
-        cfg, pat = self.cfg, self.pattern
-
-        def kv(n, seq=max_seq):
-            return [self._attn_cache(batch, seq) for _ in range(n)]
-
-        def ssm(n):
-            return [self._ssm_state(batch) for _ in range(n)]
-
-        c: Cache = {}
-        if pat.kind == "ssm":
-            c["blocks"] = ssm(pat.n_scan)
-        elif pat.kind == "mixed":
-            c["blocks"] = [self._attn_cache(batch, max_seq) if mixer == "attn"
-                           else self._ssm_state(batch)
-                           for mixer, _ in cfg.layer_plan()]
-        elif pat.kind == "local_global":
-            w = min(cfg.sliding_window or max_seq, max_seq)
-            c["groups"] = [{"local": kv(pat.group_local, w),
-                            "global": self._attn_cache(batch, max_seq)}
-                           for _ in range(pat.n_groups)]
-            if pat.n_tail:
-                c["tail"] = kv(pat.n_tail, w)
-        elif pat.kind == "hybrid":
-            c["groups"] = [ssm(pat.group_local) for _ in range(pat.n_groups)]
-            c["shared"] = kv(pat.n_groups)
-            if pat.n_tail:
-                c["tail"] = ssm(pat.n_tail)
-        else:
-            c["blocks"] = kv(pat.n_scan)
-            if pat.n_lead:
-                c["lead"] = kv(pat.n_lead)
-        return c
+        return _map(lambda layer: self._state(layer, batch, max_seq),
+                    self.plan.cache)
 
     # ------------------------------------------------------------- embedding
     def embed(self, inputs: Inputs) -> torch.Tensor:
@@ -525,81 +560,33 @@ class LM(nn.Module):
         """The layer stack and the final norm: (x, the new cache, the sum of
         the MoE blocks' aux losses, f32).  Without a cache, the forward over
         positions arange(T); with one, serving from position ``t``.
-        ``positions3`` reaches the attention layers of the uniform_attn and
-        moe patterns, as in the reference."""
-        cfg, kind = self.cfg, self.pattern.kind
+        ``positions3`` reaches the layers the plan marks (the attention
+        layers of the uniform_attn and moe patterns, as in the reference)."""
         serving = cache is not None
         remat = self.remat and not serving and torch.is_grad_enabled()
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
-        new_cache: Cache = {}
+        states = {}
 
         def run(block, *args):
             if remat:
                 return checkpoint(block, *args, use_reentrant=False)
             return block(*args)
 
-        def attn(block, x, state, window, p3=None):
-            nonlocal aux
-            x, state, a = run(block, x, positions, state, t, window, p3)
-            if a is not None:
-                aux = aux + a
-            return x, state
-
-        def ssm(block, x, state):
-            return run(block, x, state)
-
-        def stack(blocks, layer, caches):
-            nonlocal x
-            states = []
-            for i, block in enumerate(blocks):
-                x, state = layer(block, x, caches[i] if serving else None)
-                states.append(state)
-            return states
-
-        def cached(*path):
-            node = cache
-            for key in path:
-                node = node[key] if serving else None
-            return node
-
-        if kind == "mixed":
-            new_cache["blocks"] = stack(
-                self.blocks, lambda b, x, s: attn(b, x, s, None),
-                cached("blocks"))
-        elif kind in ("uniform_attn", "moe"):
-            for name, window in (("lead", None),
-                                 ("blocks", cfg.sliding_window)):
-                blocks = getattr(self, name)
-                if len(blocks):
-                    new_cache[name] = stack(
-                        blocks, lambda b, x, s, w=window: attn(
-                            b, x, s, w, positions3), cached(name))
-        elif kind == "ssm":
-            new_cache["blocks"] = stack(self.blocks, ssm, cached("blocks"))
-        elif kind == "local_global":
-            w = cfg.sliding_window
-            local = lambda b, x, s: attn(b, x, s, w)          # noqa: E731
-            groups = []
-            for i, g in enumerate(self.groups):
-                states = stack(g["local"], local, cached("groups", i,
-                                                         "local"))
-                x, state = attn(g["global"], x, cached("groups", i,
-                                                       "global"), None)
-                groups.append({"local": states, "global": state})
-            new_cache["groups"] = groups
-            if len(self.tail):
-                new_cache["tail"] = stack(self.tail, local, cached("tail"))
-        elif kind == "hybrid":
-            groups, shared = [], []
-            for i, g in enumerate(self.groups):
-                groups.append(stack(g, ssm, cached("groups", i)))
-                x, state = attn(self.shared, x, cached("shared", i), None)
-                shared.append(state)
-            new_cache.update(groups=groups, shared=shared)
-            if len(self.tail):
-                new_cache["tail"] = stack(self.tail, ssm, cached("tail"))
-        x = L.rmsnorm(self.io["final_norm"], x, cfg.norm_eps)
-        return x, (new_cache if serving else None), aux
+        for layer, block in self._layers:
+            state = _at(cache, layer.cache) if serving else None
+            if layer.ffn is None:
+                x, state = run(block, x, state)
+            else:
+                x, state, a = run(block, x, positions, state, t, layer.window,
+                                  positions3 if layer.positions3 else None)
+                if a is not None:
+                    aux = aux + a
+            states[layer.cache] = state
+        x = L.rmsnorm(self.io["final_norm"], x, self.cfg.norm_eps)
+        if not serving:
+            return x, None, aux
+        return x, _map(lambda layer: states[layer.cache],
+                       self.plan.cache), aux
 
     def _run(self, inputs: Inputs, cache=None, t=None):
         x = constrain(self.embed(inputs), ("batch", "seq", None))
@@ -683,13 +670,13 @@ class LM(nn.Module):
     # ---------------------------------------------------------- decode graph
     def graphs_decode(self) -> bool:
         """Whether ``decode_step`` runs as a CUDA graph: the model is on a
-        CUDA device, its pattern is ``ssm`` (every layer's cache entry is a
-        recurrent state of a fixed size), and no parameter is a DTensor (the
-        sharded path stays eager).  Read once, and again after
-        ``load_params``."""
+        CUDA device, its plan's cache is recurrent (every layer's entry a
+        recurrent state of a fixed size, ``StackPlan.recurrent``: the
+        ``ssm`` pattern's), and no parameter is a DTensor (the sharded path
+        stays eager).  Read once, and again after ``load_params``."""
         if self._graph_ok is None:
             self._graph_ok = (self.device.type == "cuda"
-                              and self.pattern.kind == "ssm"
+                              and self.plan.recurrent
                               and not any(is_dtensor(p)
                                           for p in self.parameters()))
         return self._graph_ok
@@ -754,6 +741,16 @@ class DecodeGraph(NamedTuple):
     banks: Tuple[torch.Tensor, ...]
     cache: Cache
     logits: torch.Tensor
+
+
+def _module_tree(node) -> nn.Module:
+    """A tree of modules as one: lists as ``nn.ModuleList``s (None as an
+    empty one), mappings as ``nn.ModuleDict``s."""
+    if isinstance(node, nn.Module):
+        return node
+    if isinstance(node, dict):
+        return nn.ModuleDict({k: _module_tree(v) for k, v in node.items()})
+    return nn.ModuleList(_module_tree(v) for v in node or [])
 
 
 def _stack_into(banks: Tuple[torch.Tensor, ...], layers: list) -> None:

@@ -8,8 +8,9 @@ the copy of a foreign cache into them, the restore before the first replay,
 the reuse of the graph's own cache, the recapture after ``load_params``) is
 the program's.  The eligibility rule is asked as on a CUDA device (the
 model's ``device`` set to cuda, no kernel run): it takes falcon-mamba-7b's
-``ssm`` pattern and refuses the four other patterns; a model with DTensor
-parameters is refused in ``tests/test_torch_sharded.py``'s gloo ranks.
+``ssm`` pattern and refuses the five other patterns, Jamba's ``mixed`` one
+among them; a model with DTensor parameters is refused in
+``tests/test_torch_sharded.py``'s gloo ranks.
 """
 import jax
 import jax.numpy as jnp
@@ -27,10 +28,12 @@ from repro_torch.models.model import LM
 from repro_torch.models.params import params_from_jax
 from repro_torch.obs import spans
 from repro_torch.serve.engine import Engine
+from test_torch_jamba import SMALL
+from test_torch_plan import jamba_config
 
 ARCH = "falcon-mamba-7b"
 REFUSED = ("smollm-135m", "deepseek-v2-lite-16b", "gemma3-27b",
-           "zamba2-1.2b")
+           "zamba2-1.2b", "jamba2-mini")
 
 
 class Replayed:
@@ -224,7 +227,8 @@ def _probe(lm):
 
 @pytest.mark.parametrize("arch", (ARCH,) + REFUSED)
 def test_only_the_ssm_pattern_decodes_as_a_graph(arch):
-    cfg = get_config(arch).smoke()
+    cfg = (jamba_config(**SMALL) if arch == "jamba2-mini"
+           else get_config(arch).smoke())
     lm = LM(cfg, device="cpu", seed=0)
     assert _probe(lm) == (arch == ARCH)
     assert not lm.graphs_decode()              # on the CPU: never
