@@ -7,9 +7,10 @@ Run from the repository root with no arguments:
 
 It needs one CUDA card and ``nvcc``; it builds the port's kernel libraries
 (the integrity hash, the lane segment step, flash attention, the selective
-scan and Mamba1's fused decode step) from the repository's own sources, all
-at once, one ``nvcc`` each, on first use.  Phases, each of which ends the run with a non-zero exit code if
-it fails, and each of which prints its wall time:
+scan, Mamba1's fused decode step and AdamW's two passes) from the
+repository's own sources, all at once, one ``nvcc`` each, on first use.
+Phases, each of which ends the run with a non-zero exit code if it fails,
+and each of which prints its wall time:
 
 1. Device and build: the card's name and power limit, the kernels' builds
    with their registers and spills.
@@ -70,6 +71,20 @@ it fails, and each of which prints its wall time:
    also with dt_bias, A_log and D in bf16; each kernel timed as the
    profiler's device time per call over eight input sets in turn (past the
    L2), beside its bytes bound and the plain versions' time.
+8c. AdamW's two passes: the update kernel against the plain PyTorch
+   version on the card (master, m, v and the bf16 params bit for bit,
+   given the same clip scale, lr and bias corrections) and the norm's sum
+   of squares (within ``NORM_REL_TOL``, the same bits run to run) at the
+   train cell's leaf shapes (64, 2048, 1408), (102400, 2048) and (2048,),
+   with an f32 gradient, a ragged leaf, a leaf of 31 (a tail of 7 after
+   the 8-element units) and misaligned views; launches ``==``; each
+   kernel's device time per call beside its bytes bound, the plain
+   version's time and, at the three cell shapes, the library's
+   (``torch.optim.AdamW(fused=True).step`` on f32 params and gradients,
+   as many bytes an element as the update kernel; ``torch._foreach_norm``
+   for the norm); then ``optim.adamw.update`` over those three leaves,
+   launches ``==``, no host synchronisation
+   (``torch.cuda.set_sync_debug_mode("error")``), ``adamw_update_ms``.
 9. Serving, the third main path: smollm-135m and falcon-mamba-7b at their
    published configs with all layers, weights from the port's seeded init
    on the card, 8 requests through ``launch.serve`` and ``Engine`` (4
@@ -108,9 +123,12 @@ it fails, and each of which prints its wall time:
    state in memory and serve the same tokens.  Launches asserted with
    ``==``: flash attention once a layer a forward (remat doubles it) of
    every executed step, the hash once a 4 MiB read of every file scanned,
-   copied, re-read and verified.  With step ms, tokens/s, the card's busy
-   share in one profiled step, the kernel's and the eager backward's
-   shares, the top device kernels and the checkpoint walls and GB/s.
+   copied, re-read and verified, AdamW's update and norm pass once a leaf
+   and its finish once an executed step (so in phases 13, 15, 16 and 17's
+   training; in no serving phase and not in phase 11).  With step ms,
+   tokens/s, the card's busy share in one profiled step, the kernel's and
+   the eager backward's shares, the top device kernels and the checkpoint
+   walls and GB/s.
    Then falcon-mamba-7b at full width cut to 4 layers (``MAMBA_CUTS``),
    3 steps, the scan launched once a layer a step.
 11. The replication CLI (host only, no kernel may launch):
@@ -179,12 +197,15 @@ Each main path (phases 3, 6, 9, 10, 12, 13, 14, 15, 16 and 17) is driven
 with every kernel's launch count set to 0 just before it and read just
 after.
 It prints one ``{"kernels": [...]}`` JSON line, each kernel's ``launches``
-from its serving or replication path, ``launches_training`` from phase 10,
+from its serving or replication path (AdamW's from phase 10's smollm-135m
+run, its only path; phase 8c's own count is ``launches_8c``),
+``launches_training`` from phase 10,
 the MoE and family paths' launches (``launches_moe_serve``,
 ``launches_moe_training``, ``launches_family_serve``,
 ``launches_family_training``) and the sharded path's
 (``launches_sharded`` of B3 and B4, ``launches_elastic`` of B1) and the
-examples' (``launches_examples``), and, last, the result line ``{"ok": true, "device": {...}}``.  It imports
+examples' (``launches_examples``), and, last, the result line
+``{"ok": true, "device": {...}}``.  It imports
 neither JAX nor the JAX package.
 """
 from __future__ import annotations
@@ -193,6 +214,7 @@ import contextlib
 import importlib.util
 import io
 import json
+import math
 import os
 import re
 import shutil
@@ -1506,6 +1528,246 @@ def phase_mamba_step(torch, step, ref, card: str) -> dict:
                      "bf16", "cases": cases, "card": card}
 
 
+# AdamW's two passes (phase 8c) at the train cell's leaf shapes
+# (deepseek-v2-lite-16b: an expert bank, the embedding, a norm's weight), the
+# embedding with an f32 (accumulated) gradient, a ragged leaf, a leaf of three
+# 8-element units and a tail of 7 (~7/31 of its sum of squares: a tail lost
+# or counted twice fails the norm's tolerance), and f32 leaves on views one
+# element past an aligned start (the kernels' scalar path):
+# (label, shape, the gradient's dtype, the views' offset in elements)
+ADAMW_CASES = [("experts", (64, 2048, 1408), "bfloat16", 0),
+               ("embedding", (102400, 2048), "bfloat16", 0),
+               ("norm", (2048,), "bfloat16", 0),
+               ("embedding_f32_grad", (102400, 2048), "float32", 0),
+               ("ragged", (1000003,), "bfloat16", 0),
+               ("tail", (31,), "bfloat16", 0),
+               ("misaligned", (4096, 1027), "float32", 1)]
+ADAMW_TREE = ("experts", "embedding", "norm")   # one update over these
+ADAMW_HYPER = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+ADAMW_STEP = 3                # the bias corrections' step
+NORM_REL_TOL = 1e-5           # tests/test_torch_adamw.py
+
+
+def adamw_inputs(torch, gen, shape, dt_name: str, offset: int):
+    """(g, master, m, v) of ``shape``, each a view ``offset`` elements into
+    its own buffer: g ~ 1e-3 in its dtype, master ~ 0.02, m ~ 1e-4 and
+    v ~ 1e-8 (non-negative), f32."""
+    n = math.prod(shape)
+
+    def leaf(scale, dtype=torch.float32, square=False):
+        x = torch.randn(n, generator=gen, device=DEVICE) * scale
+        return twin(torch, (x * x if square else x).to(dtype).view(shape),
+                    offset)
+    return (leaf(1e-3, getattr(torch, dt_name)), leaf(0.02), leaf(1e-4),
+            leaf(1e-4, square=True))
+
+
+def twin(torch, x, offset: int):
+    """A copy of ``x`` that starts ``offset`` elements into a buffer of its
+    own."""
+    buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    out = buf[offset:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def adamw_scalars(torch):
+    """(scale, lr, b1c, b2c) as an update forms them, 0-d f32 on the card:
+    a clip scale below 1, the cell's peak lr, step ``ADAMW_STEP``."""
+    dev = torch.device(DEVICE)
+    step = torch.full((), ADAMW_STEP, dtype=torch.int32, device=dev)
+    return (torch.full((), 0.73, device=dev), torch.full((), 3e-4, device=dev),
+            1.0 - ADAMW_HYPER["b1"] ** step.float(),
+            1.0 - ADAMW_HYPER["b2"] ** step.float())
+
+
+def same_bits(torch, a, b) -> bool:
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.view(ints[a.dtype]), b.view(ints[b.dtype]))
+
+
+def adamw_bytes(n: int, g_elt: int) -> dict:
+    """Bytes each pass moves at least for a leaf of ``n`` elements: the
+    update reads g, master, m and v and writes master, m, v and the bf16
+    params; the norm reads g."""
+    return {"adamw_update_kernel": n * (g_elt + 2 * 12 + 2),
+            "sum_squares_kernel": n * g_elt}
+
+
+def library_adamw(torch, gen, shape) -> dict:
+    """Device ms per call of PyTorch's own kernels for one leaf of
+    ``shape``: ``torch.optim.AdamW(fused=True).step`` on f32 params with an
+    f32 gradient (it reads params, gradient, m and v and writes params, m
+    and v: 28 B an element, the bytes of the update kernel with a bf16
+    gradient and bf16 params out) and ``torch._foreach_norm`` of a bf16
+    gradient (the norm pass's read); each by the profiler's device ops and
+    by CUDA events."""
+    p = torch.nn.Parameter(torch.randn(shape, generator=gen, device=DEVICE)
+                           * 0.02)
+    p.grad = torch.randn(shape, generator=gen, device=DEVICE) * 1e-3
+    g = p.grad.bfloat16()
+    opt = torch.optim.AdamW([p], lr=3e-4, betas=(ADAMW_HYPER["b1"],
+                                                 ADAMW_HYPER["b2"]),
+                            eps=ADAMW_HYPER["eps"],
+                            weight_decay=ADAMW_HYPER["weight_decay"],
+                            fused=True)
+    iters = 16
+    out = {}
+    for name, call in (("step_ms", opt.step),
+                       ("norm_ms", lambda: torch._foreach_norm([g]))):
+        # less the step's own range, which the profiler also puts on the
+        # device's timeline (a user annotation around the step's kernels)
+        by = {k: v for k, v in device_ms_by_name(torch, call, iters).items()
+              if not k.startswith("Optimizer.")}
+        check(bool(by), f"adamw library {name}: the profiler recorded no "
+                        f"device op")
+        out[name] = sum(ms * n for ms, n in by.values()) / iters
+        out[name.replace("_ms", "_ops")] = {k[:60]: n for k, (_, n)
+                                            in by.items()}
+        # CUDA events over back-to-back calls, beside the profiler's count
+        out[name.replace("_ms", "_events_ms")] = cuda_ms(torch, call, iters)
+    del p, g, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_adamw(torch, kernel, ref, adamw, card: str) -> dict:
+    """AdamW's two passes (``adamw.cu``) against the plain versions on the
+    card at ``ADAMW_CASES``: the update's master, m, v and bf16 params bit
+    for bit given the same scalars, the norm within ``NORM_REL_TOL`` and
+    the same bits from run to run; launches ``==``.  Each kernel timed as
+    the profiler's device time per call beside its bytes bound and the
+    plain version's time, and at the cell's three shapes the library's
+    (``library_adamw``); then one ``optim.adamw.update`` over a tree of
+    the cell's three leaf shapes, launches ``==`` and no host
+    synchronisation, with its host time (``adamw_update_ms``)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 13)
+    kernel.LIBRARY.load()        # phase 1 printed its ptxas lines
+    scalars = adamw_scalars(torch)
+    cases = {}
+    for label, shape, dt_name, offset in ADAMW_CASES:
+        g, p, m, v = adamw_inputs(torch, gen, shape, dt_name, offset)
+        n = g.numel()
+        got = [twin(torch, x, offset) for x in (p, m, v)]
+        want = [twin(torch, x, offset) for x in (p, m, v)]
+        before = (kernel.launches, kernel.norm_launches,
+                  kernel.finish_launches)
+        [new] = kernel.update_cuda([g], *([x] for x in got), *scalars,
+                                   **ADAMW_HYPER)
+        new_ref = ref.update(g, *want, *scalars, **ADAMW_HYPER)
+        _, total = kernel.sum_squares_cuda([g.reshape(-1)])
+        _, again = kernel.sum_squares_cuda([g.reshape(-1)])
+        _, total_ref = ref.sum_squares([g])
+        torch.cuda.synchronize()
+        counts = (kernel.launches - before[0],
+                  kernel.norm_launches - before[1],
+                  kernel.finish_launches - before[2])
+        check(counts == (1, 2, 2), f"adamw {label}: launches {counts}, "
+                                   "want (1, 2, 2)")
+        for what, a, b in zip(("master", "m", "v", "params"),
+                              got + [new], want + [new_ref]):
+            check(same_bits(torch, a, b), f"adamw {label}: the update's "
+                                          f"{what} differs from the plain "
+                                          f"version's")
+        rel = abs(total.item() - total_ref.item()) / total_ref.item()
+        check(rel <= NORM_REL_TOL, f"adamw {label}: the norm's sum is "
+                                   f"{rel:.3g} off the plain one")
+        check(same_bits(torch, total, again),
+              f"adamw {label}: the norm differs from run to run")
+        bytes_ = adamw_bytes(n, g.element_size())
+        kernels = {}
+        for name, call in (
+                ("adamw_update_kernel",
+                 lambda: kernel.update_cuda([g], *([x] for x in got),
+                                            *scalars, **ADAMW_HYPER)),
+                ("sum_squares_kernel",
+                 lambda: kernel.sum_squares_cuda([g.reshape(-1)]))):
+            by = device_ms_by_name(torch, call, 16)
+            mine = {k: v for k, v in by.items() if name in k}
+            check(bool(mine), f"adamw {label}: no {name} in {sorted(by)}")
+            ms = sum(t for t, _ in mine.values())
+            b_ms, b_by = roofline(bytes_[name], 0, PEAK_FP32_FLOPS)
+            kernels[name] = {"ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+                             "bytes": bytes_[name],
+                             "roofline_share": b_ms / ms if ms else None,
+                             "call_ms_by_op": {k[:60]: t for k, (t, _)
+                                               in by.items()}}
+        plain_ms = cuda_ms(torch, lambda: ref.update(g, *want, *scalars,
+                                                     **ADAMW_HYPER), 3, 1)
+        plain_norm_ms = cuda_ms(torch, lambda: ref.sum_squares([g]), 3, 1)
+        cases[label] = {"shape": list(shape), "grad": dt_name,
+                        "offset": offset, "norm_rel_err": rel,
+                        "kernels": kernels, "plain_update_ms": plain_ms,
+                        "plain_norm_ms": plain_norm_ms}
+        if label in ADAMW_TREE:
+            cases[label]["library"] = library_adamw(torch, gen, shape)
+        log(f"[8c] adamw {label}: " + json.dumps(cases[label]))
+        del g, p, m, v, got, want, new, new_ref
+        torch.cuda.empty_cache()
+    # one whole update over the cell's three leaf shapes
+    shapes = {c[0]: c[1] for c in ADAMW_CASES}
+    params = {k: (torch.randn(shapes[k], generator=gen, device=DEVICE)
+                  * 0.02).bfloat16() for k in ADAMW_TREE}
+    grads = {k: (torch.randn(shapes[k], generator=gen, device=DEVICE)
+                 * 1e-3).bfloat16() for k in ADAMW_TREE}
+    state = adamw.init(params)
+    lr = scalars[1]
+    before = (kernel.launches, kernel.norm_launches, kernel.finish_launches)
+    iters = 5
+    update_ms = host_ms(torch, lambda: adamw.update(grads, state, lr),
+                        iters, warmup=1)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        adamw.update(grads, state, lr)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    runs, leaves = iters + 2, len(ADAMW_TREE)
+    counts = (kernel.launches - before[0], kernel.norm_launches - before[1],
+              kernel.finish_launches - before[2])
+    want = (runs * leaves, runs * leaves, runs)
+    check(counts == want, f"adamw tree: launches {counts}, want {want}")
+    tree_bytes = sum(adamw_bytes(math.prod(shapes[k]), 2)[
+        "adamw_update_kernel"] for k in ADAMW_TREE)
+    tree = {"leaves": {k: list(shapes[k]) for k in ADAMW_TREE},
+            "adamw_update_ms": update_ms,
+            "bound_ms": roofline(tree_bytes, 0, PEAK_FP32_FLOPS)[0],
+            "launches_per_update": {"update": leaves, "norm": leaves,
+                                    "finish": 1}}
+    log("[8c] adamw tree: " + json.dumps(tree))
+    del params, grads, state
+    torch.cuda.empty_cache()
+    k = {n: sum(c["kernels"][n]["ms"] for lbl, c in cases.items()
+                if lbl in ADAMW_TREE)
+         for n in ("adamw_update_kernel", "sum_squares_kernel")}
+    b = sum(sum(c["kernels"][n]["bound_ms"] for n in c["kernels"])
+            for lbl, c in cases.items() if lbl in ADAMW_TREE)
+    return {"name": "adamw", "route": "cuda",
+            "source": "src/repro_torch/kernels/adamw/csrc/adamw.cu",
+            "replaces": "none: the JAX package's AdamW is jnp "
+                        "(src/repro/optim/adamw.py update)",
+            "launches": None, "launches_8c": counts[0],
+            "ms": sum(k.values()), "ms_by_kernel": k,
+            "ms_source": "torch.profiler",
+            "plain_ms": sum(c["plain_update_ms"] + c["plain_norm_ms"]
+                            for lbl, c in cases.items()
+                            if lbl in ADAMW_TREE),
+            "bound_ms": b, "bound_by": "bytes",
+            "library_ms": sum(c["library"]["step_ms"] + c["library"][
+                "norm_ms"] for c in cases.values() if "library" in c),
+            "library_ms_by_call": {n: sum(c["library"][n] for c in
+                                          cases.values() if "library" in c)
+                                   for n in ("step_ms", "norm_ms")},
+            "library": "torch.optim.AdamW(fused=True).step on f32 params and "
+                       "gradients (28 B an element, as the update kernel) "
+                       "and torch._foreach_norm of the bf16 gradients; "
+                       "timed here only, the port calls neither",
+            "shape": "deepseek-v2-lite-16b's (64, 2048, 1408), "
+                     "(102400, 2048) and (2048,), bf16 gradients",
+            "tree": tree, "cases": cases, "card": card}
+
+
 # ------------------------------------------------------------ serving (3rd)
 # (arch, layers, flash and scan launches a prefill wave, the name of the
 # kernel its prefill launches, requests profiled, the f32 check's cut: its
@@ -1741,8 +2003,8 @@ def phase_serve(torch, get_config, LM, launch_serve, Engine, flash, scan,
         n_params = sum(p.numel() for p in model.parameters())
         eng = Engine(cfg, model=model, max_batch=SERVE["max_batch"],
                      max_seq=max_seq)
-        for k in (flash, scan, *others, *([step] if step else [])):
-            k.launches = 0                                   # path starts
+        counted = (flash, scan, *others, *([step] if step else []))
+        zero_counts(counted)                                 # path starts
         flash.launches_by_path.update(tensor_core=0, cuda_core=0)
         first = next_span_index(spans)
         eng, done, wall = serve(eng, SERVE["requests"])
@@ -1750,7 +2012,7 @@ def phase_serve(torch, get_config, LM, launch_serve, Engine, flash, scan,
         launches = {"flash": flash.launches, "scan": scan.launches}
         step_launches = step.launches if step else None
         by_path = dict(flash.launches_by_path)
-        stray = sum(k.launches for k in others)              # path ends
+        stray = sum(read_counts(others).values())            # path ends
         check(len(done) == SERVE["requests"] and all(
             r.done and len(r.out_tokens) == SERVE["max_new"] for r in done),
             f"{arch}: not every request returned {SERVE['max_new']} tokens")
@@ -2046,9 +2308,50 @@ def train_dir(need: int) -> str:
     return tempfile.mkdtemp(prefix="repro_torch_train_", dir=best)
 
 
+# AdamW's counts beside its update's ``launches``: its norm's passes
+ADAMW_NORM_COUNTS = ("norm_launches", "finish_launches")
+
+
+def zero_counts(kernels) -> None:
+    """Every launch count of ``kernels`` set to 0: a path starts."""
+    for k in kernels:
+        k.launches = 0
+        for a in ADAMW_NORM_COUNTS:
+            if hasattr(k, a):
+                setattr(k, a, 0)
+
+
+def adamw_counts(k) -> dict:
+    """AdamW's launches: the update's, the norm's passes and finishes."""
+    return {"adamw": k.launches, "adamw_norm": k.norm_launches,
+            "adamw_finish": k.finish_launches}
+
+
+def read_counts(kernels) -> dict:
+    """Each kernel's launches under its module's name, AdamW's norm passes
+    beside its update's: a path ends."""
+    out = {}
+    for k in kernels:
+        out.update(adamw_counts(k) if hasattr(k, "norm_launches") else
+                   {k.__name__.rsplit(".", 1)[-1]: k.launches})
+    return out
+
+
+def adamw_want(cfg, steps: int) -> dict:
+    """AdamW's launches over ``steps`` updates of ``cfg``'s params: an
+    update and a norm pass a leaf that holds an element, one finish an
+    update."""
+    from repro_torch.models.model import LM
+    from repro_torch.tree import leaves
+    n = sum(1 for x in leaves(LM(cfg, device="meta").params())
+            if x.numel())
+    return {"adamw": steps * n, "adamw_norm": steps * n,
+            "adamw_finish": steps}
+
+
 def phase_train(torch, get_config, LM, Engine, launch_serve, loop, adamw,
                 CheckpointReplicator, chunk_bytes: int, kernel, lane_kernel,
-                flash, scan) -> dict:
+                flash, scan, adamw_kernel) -> dict:
     """The fourth main path: smollm-135m trained at full width and depth
     with one injected failure, checkpoints hashed on the card and
     replicated to two sites, the primary lost, and a verified restore from
@@ -2059,7 +2362,7 @@ def phase_train(torch, get_config, LM, Engine, launch_serve, loop, adamw,
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.tree import leaves, unflatten
-    kernels = (kernel, lane_kernel, flash, scan)
+    kernels = (kernel, lane_kernel, flash, scan, adamw_kernel)
     cfg = get_config("smollm-135m")
     check(cfg.n_layers == 30, f"smollm-135m has {cfg.n_layers} layers")
     tmp = train_dir(TRAIN_DISK_BYTES)
@@ -2098,8 +2401,7 @@ def phase_train(torch, get_config, LM, Engine, launch_serve, loop, adamw,
         ckpt_dir = os.path.join(rep.site_dir("POD0"), "ckpts")
         tc = loop.TrainConfig(ckpt_dir=ckpt_dir, replicator=rep,
                               device=DEVICE, seed=SEED, **TRAIN)
-        for k in kernels:
-            k.launches = 0                                   # path starts
+        zero_counts(kernels)                                 # path starts
         flash.launches_by_path.update(tensor_core=0, cuda_core=0)
         t0 = time.perf_counter()
         res = loop.train(cfg, tc)
@@ -2111,7 +2413,8 @@ def phase_train(torch, get_config, LM, Engine, launch_serve, loop, adamw,
         restore_s = time.perf_counter() - t1
         launches = {"checksum": kernel.launches,
                     "lane_step": lane_kernel.launches,
-                    "flash": flash.launches, "scan": scan.launches}
+                    "flash": flash.launches, "scan": scan.launches,
+                    **adamw_counts(adamw_kernel)}
         by_path = dict(flash.launches_by_path)               # path ends
         loop.save_checkpoint, loop.restore_checkpoint = save, restore
 
@@ -2150,10 +2453,11 @@ def phase_train(torch, get_config, LM, Engine, launch_serve, loop, adamw,
         remat = 1 + int(TRAIN["remat"])
         want = {"checksum": want_hash, "lane_step": 0, "scan": 0,
                 "flash": cfg.n_layers * executed * remat
-                * TRAIN["microbatches"]}
+                * TRAIN["microbatches"], **adamw_want(cfg, executed)}
         check(launches == want,
               f"training launches {launches}, want {want} ({executed} "
-              f"steps x {cfg.n_layers} layers x {remat} forwards)")
+              f"steps x {cfg.n_layers} layers x {remat} forwards; AdamW "
+              f"a leaf a step)")
         check(by_path == {"tensor_core": want["flash"], "cuda_core": 0},
               f"training flash launches by kernel {by_path}")
 
@@ -2271,8 +2575,7 @@ def phase_train(torch, get_config, LM, Engine, launch_serve, loop, adamw,
     # falcon-mamba-7b at full width, cut in depth
     mcfg = get_config("falcon-mamba-7b").with_(n_layers=MAMBA_TRAIN_LAYERS)
     log(f"[10] reduced: {MAMBA_CUTS}")
-    for k in kernels:
-        k.launches = 0                                       # path starts
+    zero_counts(kernels)                                     # path starts
     t0 = time.perf_counter()
     mres = loop.train(mcfg, loop.TrainConfig(device=DEVICE, seed=SEED,
                                              **MAMBA_TRAIN))
@@ -2280,10 +2583,12 @@ def phase_train(torch, get_config, LM, Engine, launch_serve, loop, adamw,
     mwall = time.perf_counter() - t0
     mlaunches = {"checksum": kernel.launches,
                  "lane_step": lane_kernel.launches,
-                 "flash": flash.launches, "scan": scan.launches}  # path ends
+                 "flash": flash.launches, "scan": scan.launches,
+                 **adamw_counts(adamw_kernel)}               # path ends
     mwant = {"checksum": 0, "lane_step": 0, "flash": 0,
              "scan": MAMBA_TRAIN_LAYERS * len(mres.losses)
-             * (1 + int(MAMBA_TRAIN["remat"])) * MAMBA_TRAIN["microbatches"]}
+             * (1 + int(MAMBA_TRAIN["remat"])) * MAMBA_TRAIN["microbatches"],
+             **adamw_want(mcfg, len(mres.losses))}
     check(len(mres.losses) == MAMBA_TRAIN["steps"]
           and mres.final_step == MAMBA_TRAIN["steps"],
           f"falcon-mamba-7b ran {len(mres.losses)} steps")
@@ -2491,15 +2796,13 @@ def phase_train_archs(torch, get_config, LM, loop, adamw, kernels, flash,
                               ckpt_every=train["steps"], **train)
         try:
             loop.save_checkpoint = kept_save
-            for k in kernels:
-                k.launches = 0                               # path starts
+            zero_counts(kernels)                             # path starts
             flash.launches_by_path.update(tensor_core=0, cuda_core=0)
             t0 = time.perf_counter()
             res = loop.train(cfg, tc)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            launches = {k.__name__.rsplit(".", 1)[-1]: k.launches
-                        for k in kernels}
+            launches = read_counts(kernels)
             by_path = dict(flash.launches_by_path)           # path ends
             peak_gb = torch.cuda.max_memory_allocated() / 1e9
             check(len(res.losses) == train["steps"] and all(
@@ -2544,7 +2847,8 @@ def phase_train_archs(torch, get_config, LM, loop, adamw, kernels, flash,
                              restored_equal=True)
                 del tree, got
             want = {"checksum": want_hash, "lane_step": 0, "mamba_scan": 0,
-                    "flash_attention": want_flash}
+                    "flash_attention": want_flash,
+                    **adamw_want(cfg, train["steps"])}
             check(launches == want,
                   f"{arch}: training launches {launches}, want {want}")
             check(by_path == {"tensor_core": want_flash, "cuda_core": 0},
@@ -2715,8 +3019,7 @@ def phase_sharded(torch, get_config, LM, kernels, checksum, flash, scan,
             def run_plain():
                 return dryrun.build_prefill_step(plain)(
                     plain.params(), toks, cache)[0]
-            for k in kernels:
-                k.launches = 0                               # path starts
+            zero_counts(kernels)                             # path starts
             logits = run_sharded()
             torch.cuda.synchronize()
             launches = {"flash": flash.launches, "scan": scan.launches}
@@ -2769,8 +3072,7 @@ def phase_sharded(torch, get_config, LM, kernels, checksum, flash, scan,
             torch.cuda.synchronize()
             plain_ms.append((time.perf_counter() - t) * 1e3)
             losses_p.append(loss.item())
-        for k in kernels:
-            k.launches = 0                                   # path starts
+        zero_counts(kernels)                                 # path starts
         step_ms, losses_s = [], []
         with logical_axis_rules(mesh, rules):
             for b in batches:
@@ -2781,10 +3083,17 @@ def phase_sharded(torch, get_config, LM, kernels, checksum, flash, scan,
                 step_ms.append((time.perf_counter() - t) * 1e3)
                 losses_s.append(loss.full_tensor().item())
         launches = {"flash": flash.launches, "scan": scan.launches,
-                    "checksum": checksum.launches}           # path ends
+                    "checksum": checksum.launches}
+        opt = {k: n for k, n in read_counts(kernels).items()
+               if k.startswith("adamw")}                     # path ends
         want = cfg.n_layers * tr["steps"] * 2
         check(launches == {"flash": want, "scan": 0, "checksum": 0},
               f"[16] sharded training launched {launches}, want {want} B3")
+        # AdamW on the ZeRO-1 state's local shards (whole leaves on 1 x 1)
+        check(opt == adamw_want(cfg, tr["steps"]),
+              f"[16] sharded training's AdamW launched {opt}, want "
+              f"{adamw_want(cfg, tr['steps'])}")
+        launches.update(opt)
         diffs = [(a.full_tensor().float() - b.float()).abs().max().item()
                  for a, b in zip(leaves((params_s, opt_s.master)),
                                  leaves((params_p, opt_p.master)))]
@@ -2809,8 +3118,7 @@ def phase_sharded(torch, get_config, LM, kernels, checksum, flash, scan,
         d = save_checkpoint(os.path.join(tmp, "ckpts"), tr["steps"], tree,
                             device=DEVICE)
         per = ckpt_hash_launches(d, chunk_bytes)
-        for k in kernels:
-            k.launches = 0                                   # path starts
+        zero_counts(kernels)                                 # path starts
         t = time.perf_counter()
         got = restore_checkpoint(os.path.join(tmp, "ckpts"), tree,
                                  device=DEVICE)
@@ -2908,15 +3216,13 @@ def run_example(torch, name: str, argv, kernels):
     KeptDir.path = train_dir(EXAMPLE_DISK_BYTES)
     # only the example's own ``tempfile`` name sees the stand-in
     mod.tempfile = types.SimpleNamespace(TemporaryDirectory=KeptDir)
-    for k in kernels:
-        k.launches = 0                                       # path starts
+    zero_counts(kernels)                                     # path starts
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         rc = mod.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k.__name__.rsplit(".", 1)[-1]: k.launches
-                for k in kernels}                            # path ends
+    launches = read_counts(kernels)                          # path ends
     text = buf.getvalue()
     for line in text.splitlines():
         if line.strip():
@@ -2942,7 +3248,7 @@ def phase_examples(torch, get_config, loop, kernels, checksum, flash, scan,
     (host only).  Launches ``==`` what each run's steps, waves and files
     give; each example's wall."""
     out = {"card": card}
-    zero = {k.__name__.rsplit(".", 1)[-1]: 0 for k in kernels}
+    zero = dict.fromkeys(read_counts(kernels), 0)
     byp = {"tensor_core": 0, "cuda_core": 0}
     try:
         # -- the quickstart, smollm-135m at its published config
@@ -2982,7 +3288,8 @@ def phase_examples(torch, get_config, loop, kernels, checksum, flash, scan,
                             f"step-{QUICKSTART['ckpt_every']:06d}")
         per = ckpt_hash_launches(ckpt, chunk_bytes)
         want = dict(zero, checksum=2 * per["scan"],
-                    flash_attention=cfg.n_layers * executed)
+                    flash_attention=cfg.n_layers * executed,
+                    **adamw_want(cfg, executed))
         check(launches == want and by_path == dict(
             byp, tensor_core=want["flash_attention"]),
             f"quickstart launches {launches} ({by_path}), want {want}: "
@@ -3054,9 +3361,10 @@ def phase_examples(torch, get_config, loop, kernels, checksum, flash, scan,
         want_hash = staging + sum(p["scan"] + REPLICATION["replicas"] *
                                   p["copy"] for p in per.values()) + \
             per[ckpts[-1]]["scan"]
-        n_layers = get_config("smollm-135m").smoke().n_layers
+        smoke = get_config("smollm-135m").smoke()
         want = dict(zero, checksum=want_hash,
-                    flash_attention=n_layers * REPLICATION["steps"])
+                    flash_attention=smoke.n_layers * REPLICATION["steps"],
+                    **adamw_want(smoke, REPLICATION["steps"]))
         check(launches == want,
               f"train_with_replication launches {launches}, want {want}")
         out["train_with_replication"] = {
@@ -3109,6 +3417,8 @@ def main() -> None:
     from repro_torch.data.staging import StagingArea
     from repro_torch.ensemble import engine as ens_engine
     from repro_torch.ensemble import run as ens_run
+    from repro_torch.kernels.adamw import adamw as adamw_kernel
+    from repro_torch.kernels.adamw import ref as adamw_ref
     from repro_torch.kernels.checksum import checksum as kernel
     from repro_torch.kernels.checksum import ops, ref
     from repro_torch.kernels.flash_attention import flash_attention as flash
@@ -3133,15 +3443,15 @@ def main() -> None:
     t0 = time.perf_counter()
     walls = {}
 
-    def timed(label, fn, *args):
+    def timed(label, fn, *args, **kw):
         t = time.perf_counter()
-        result = fn(*args)
+        result = fn(*args, **kw)
         walls[label] = time.perf_counter() - t
         log(f"[{label}] phase wall {walls[label]:.1f} s")
         return result
 
     card = timed(1, phase_device_and_build, torch,
-                 (kernel, lane_kernel, flash, scan, step))
+                 (kernel, lane_kernel, flash, scan, step, adamw_kernel))
     entry = timed(2, phase_kernel, torch, np, kernel, ref, ops, integrity,
                   card)
     flash.launches = scan.launches = 0
@@ -3163,8 +3473,11 @@ def main() -> None:
     flash_entry = timed(7, phase_flash, torch, flash, flash_ref, card)
     scan_entry = timed(8, phase_scan, torch, scan, scan_ref, card)
     step_entry = timed("8b", phase_mamba_step, torch, step, scan_ref, card)
+    adamw_entry = timed("8c", phase_adamw, torch, adamw_kernel, adamw_ref,
+                        adamw, card)
     served = timed(9, phase_serve, torch, get_config, LM, launch_serve,
-                   Engine, flash, scan, (kernel, lane_kernel), step=step)
+                   Engine, flash, scan, (kernel, lane_kernel, adamw_kernel),
+                   step=step)
     flash_entry["launches"] = served["smollm-135m"]["launches"]["flash"]
     flash_entry["launches_by_path"] = served["smollm-135m"][
         "flash_launches_by_path"]
@@ -3175,28 +3488,34 @@ def main() -> None:
                   flash_ref, scan, scan_ops, scan_ref)
     trained = timed(10, phase_train, torch, get_config, LM, Engine,
                     launch_serve, loop, adamw, CheckpointReplicator,
-                    _CHUNK_BYTES, kernel, lane_kernel, flash, scan)
+                    _CHUNK_BYTES, kernel, lane_kernel, flash, scan,
+                    adamw_kernel)
     # the fourth path's launches: smollm-135m's run (the hash, flash
-    # attention) and falcon-mamba-7b's (the scan)
+    # attention, AdamW's update, its main path) and falcon-mamba-7b's (the
+    # scan, AdamW)
     smol = trained["smollm-135m"]["launches"]
     for e, key in ((entry, "checksum"), (lane_entry, "lane_step"),
                    (flash_entry, "flash")):
         e["launches_training"] = smol[key]
     scan_entry["launches_training"] = trained["falcon-mamba-7b"][
         "launches"]["scan"]
+    adamw_entry["launches"] = smol["adamw"]
+    adamw_entry["launches_training"] = {
+        a: {k: n for k, n in r["launches"].items() if k.startswith("adamw")}
+        for a, r in trained.items()}
     flash_entry["training_grads"] = {k: v for k, v in grads.items()
                                      if k != TRAIN_SCAN_CASE[0]}
     scan_entry["training_grads"] = grads[TRAIN_SCAN_CASE[0]]
-    kernels = (kernel, lane_kernel, flash, scan)
-    for k in kernels:
-        k.launches = 0                                       # path starts
+    kernels = (kernel, lane_kernel, flash, scan, adamw_kernel)
+    zero_counts(kernels)                                     # path starts
     timed(11, phase_cli, cli, sweep, report)
-    check(all(k.launches == 0 for k in kernels),
+    check(not any(read_counts(kernels).values()),
           "the host-only CLI launched a kernel")                # path ends
     log(f"[12] reduced: {MOE_CUTS}")
     moe_served = timed(12, phase_serve, torch, get_config, LM, launch_serve,
-                       Engine, flash, scan, (kernel, lane_kernel),
-                       MOE_SERVE_ARCHS, 12, step=step)
+                       Engine, flash, scan,
+                       (kernel, lane_kernel, adamw_kernel), MOE_SERVE_ARCHS,
+                       12, step=step)
     moe_trained = timed(13, phase_train_archs, torch, get_config, LM, loop,
                         adamw, kernels, flash, kernel, _CHUNK_BYTES,
                         MOE_TRAIN_ARCHS, 13, MOE_TRAIN_CUTS)
@@ -3208,10 +3527,13 @@ def main() -> None:
         a: r["launches"]["flash_attention"] for a, r in moe_trained.items()}
     entry["launches_moe_training"] = {
         a: r["launches"]["checksum"] for a, r in moe_trained.items()}
+    adamw_entry["launches_moe_training"] = {
+        a: r["launches"]["adamw"] for a, r in moe_trained.items()}
     log(f"[14] reduced: {FAMILY_CUTS}")
     family_served = timed(14, phase_serve, torch, get_config, LM,
                           launch_serve, Engine, flash, scan,
-                          (kernel, lane_kernel), FAMILY_SERVE_ARCHS, 14,
+                          (kernel, lane_kernel, adamw_kernel),
+                          FAMILY_SERVE_ARCHS, 14,
                           step=step)
     family_trained = timed(15, phase_train_archs, torch, get_config, LM,
                            loop, adamw, kernels, flash, kernel, _CHUNK_BYTES,
@@ -3225,6 +3547,8 @@ def main() -> None:
         for a, r in family_trained.items()}
     entry["launches_family_training"] = {
         a: r["launches"]["checksum"] for a, r in family_trained.items()}
+    adamw_entry["launches_family_training"] = {
+        a: r["launches"]["adamw"] for a, r in family_trained.items()}
     shard = timed(16, phase_sharded, torch, get_config, LM, kernels, kernel,
                   flash, scan, _CHUNK_BYTES, card)
     log(f"[16] sharded path: phase wall {walls[16]:.1f} s of "
@@ -3241,6 +3565,8 @@ def main() -> None:
         "falcon-mamba-7b prefill": shard["prefill"]["falcon-mamba-7b"][
             "launches"]["scan"]}
     entry["launches_elastic"] = shard["elastic"]["launches"]
+    adamw_entry["launches_sharded"] = {
+        "smollm-135m training": shard["train"]["launches"]["adamw"]}
     examples = timed(17, phase_examples, torch, get_config, loop, kernels,
                      kernel, flash, scan, _CHUNK_BYTES, card)
     log(f"[17] examples: phase wall {walls[17]:.1f} s [{card}]")
@@ -3249,7 +3575,7 @@ def main() -> None:
     # B4 in the falcon-mamba serve
     runs = {k: v["launches"] for k, v in examples.items() if k != "card"}
     for e, key in ((entry, "checksum"), (flash_entry, "flash_attention"),
-                   (scan_entry, "mamba_scan")):
+                   (scan_entry, "mamba_scan"), (adamw_entry, "adamw")):
         e["launches_examples"] = {k: n[key] for k, n in runs.items()
                                   if n[key]}
     leaked = sorted(m for m in sys.modules
@@ -3258,7 +3584,8 @@ def main() -> None:
     log(f"phase walls (s): {json.dumps(walls)}")
     log(f"total wall {time.perf_counter() - t0:.1f} s [{card}]")
     print(json.dumps({"kernels": [entry, lane_entry, flash_entry,
-                                  scan_entry, step_entry]}), flush=True)
+                                  scan_entry, step_entry, adamw_entry]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

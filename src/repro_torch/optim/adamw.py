@@ -12,19 +12,27 @@ tensors, one leaf at a time, and returns them in a new ``AdamWState``: the
 reference's jitted step donates its optimizer state (``donate_argnums`` in
 ``train/loop.py``) for the same reason, so that the old and the new f32
 state are never held at once.  A caller must not read the old state after
-an update.  A leaf is updated in slices of at most ``CHUNK`` elements, so
-that the update's f32 temporaries stay small beside a large leaf (a
-262144 x 5376 embedding is 5.6 GB in f32); every operation of the update
-is elementwise, so the slices give the whole leaf's numbers bit for bit.
-The global norm sums a larger leaf's squares slice by slice too, which
-only reorders that leaf's f32 sum.
+an update.
+
+The elementwise work is ``kernels/adamw``'s two passes: on the card the
+global norm's sums of squares (one read of each gradient, summed in a
+fixed order, so the same gradients give the same norm from run to run) and
+the update (one read of each gradient, master, m and v and one write of
+master, m, v and the bf16 params, a launch a leaf), with the clip scale,
+the step and the bias corrections kept as 0-d tensors on the card: no
+update waits for the host.  Given the same clip scale the kernel's state
+and params are the eager update's bit for bit; its norm sums in another
+order than ``torch.sum``'s, within f32 rounding.  On the CPU and the meta
+device the plain version runs: the eager update, op for op, which takes a
+leaf in slices of ``kernels/adamw/ref.py``'s ``CHUNK`` elements to bound
+its f32 temporaries (the kernels make none).
 
 On the sharded path the state's leaves are DTensors, laid out by ZeRO-1
 (``launch/shardings.py``, ``opt_state_specs``).  Each gradient is
-redistributed to its moment's placements and the same slice code updates
-the local shards in place; nothing is summed across shards, so the update
-is the single-process one bit for bit.  The new bf16 params come back in
-the moments' placements, and the caller lays them out as the params.  The
+redistributed to its moment's placements and the same passes update the
+local shards in place; nothing is summed across shards, so the update is
+the single-process one bit for bit.  The new bf16 params come back in the
+moments' placements, and the caller lays them out as the params.  The
 global norm is the one exception: each leaf's squares are summed over its
 local shard and then over the ranks that hold other shards of it (an
 all-reduce over the mesh dims it is sharded on), which reorders the f32
@@ -34,7 +42,9 @@ The whole update is one coarse span, ``adamw.update``
 (``repro_torch.obs.spans``), whose attrs are the bytes an update must move,
 summed over the leaves (their local shards): ``numel``, ``grad_bytes``,
 ``state_bytes`` (master, m and v as held) and ``out_bytes`` (the bf16
-params written).  They are computed once per state tree and cached.
+params written), and ``leaves``, the leaves whose local shard holds an
+element (on the card, the update kernel's launches).  They are computed
+once per state tree and cached.
 """
 from __future__ import annotations
 
@@ -45,10 +55,11 @@ from typing import Any, Dict, List, NamedTuple, Tuple
 import torch
 
 from repro_torch import tree as T
+from repro_torch.kernels import local
+from repro_torch.kernels.adamw import ops
 from repro_torch.obs import spans
 
 PyTree = Any
-CHUNK = 1 << 26            # elements of a leaf updated at once
 
 
 class AdamWState(NamedTuple):
@@ -80,31 +91,32 @@ def init(params: PyTree) -> AdamWState:
                      params))
 
 
-def _local_sum_sq(x: torch.Tensor) -> torch.Tensor:
-    if x.numel() <= CHUNK:
-        return torch.sum(torch.square(x.float()))
-    x = x.reshape(-1)
-    return sum(torch.sum(torch.square(x[i:i + CHUNK].float()))
-               for i in range(0, x.numel(), CHUNK))
-
-
-def _sum_sq(x: torch.Tensor) -> torch.Tensor:
-    """The sum of ``x``'s squares, a plain 0-d tensor; a DTensor's over
-    its local shard, then summed over the mesh dims it is sharded on (a
-    partial sum is reduced first)."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
-    if not isinstance(x, DTensor):
-        return _local_sum_sq(x)
-    if any(p.is_partial() for p in x.placements):
+def _whole(x: torch.Tensor) -> torch.Tensor:
+    """``x``, a DTensor that is a partial sum reduced first."""
+    if local.is_dtensor(x) and any(p.is_partial() for p in x.placements):
+        from torch.distributed.tensor import Replicate
         x = x.redistribute(x.device_mesh, [
             Replicate() if p.is_partial() else p for p in x.placements])
+    return x
+
+
+def _over_ranks(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """The local sum of squares ``s`` of ``x``; a DTensor's summed over the
+    mesh dims it is sharded on, a plain 0-d tensor."""
+    if not local.is_dtensor(x):
+        return s
+    from torch.distributed.tensor import DTensor, Partial, Shard
     pl = [Partial() if isinstance(p, Shard) else p for p in x.placements]
-    return DTensor.from_local(_local_sum_sq(x.to_local()), x.device_mesh,
-                              pl, run_check=False).full_tensor()
+    return DTensor.from_local(s, x.device_mesh, pl,
+                              run_check=False).full_tensor()
 
 
 def global_norm(tree: PyTree) -> torch.Tensor:
-    return torch.sqrt(sum(_sum_sq(x) for x in T.leaves(tree)))
+    xs = [_whole(x) for x in T.leaves(tree)]
+    sums, total = ops.sum_squares(xs)
+    if not any(local.is_dtensor(x) for x in xs):
+        return torch.sqrt(total)
+    return torch.sqrt(sum(_over_ranks(x, s) for x, s in zip(xs, sums)))
 
 
 # the last state tree's byte counts: (a weak reference to its first master
@@ -119,18 +131,18 @@ def _leaf_bytes(gl: List[torch.Tensor], pl: List[torch.Tensor],
     shards; recomputed only when the state tree or the gradients' dtype
     changes."""
     global _bytes_cache
-    from torch.distributed.tensor import DTensor
     ref, dtype, out = _bytes_cache
     if ref is not None and ref() is pl[0] and dtype is gl[0].dtype:
         return out
-    n = [(p.to_local() if isinstance(p, DTensor) else p).numel()
-         for p in pl]
+    shards = [p.to_local() if local.is_dtensor(p) else p for p in pl]
+    n = [p.numel() for p in shards]
     out = {"numel": sum(n),
            "grad_bytes": sum(k * g.element_size() for k, g in zip(n, gl)),
            "state_bytes": sum(k * (p.element_size() + m.element_size()
                                    + v.element_size())
                               for k, p, m, v in zip(n, pl, ml, vl)),
-           "out_bytes": 2 * sum(n)}
+           "out_bytes": 2 * sum(n),
+           "leaves": sum(1 for k in n if k)}
     _bytes_cache = (weakref.ref(pl[0]), gl[0].dtype, out)
     return out
 
@@ -161,28 +173,8 @@ def _update(grads: PyTree, state: AdamWState, lr: torch.Tensor,
     step = state.step + 1
     b1c = 1.0 - cfg.b1 ** step.float()
     b2c = 1.0 - cfg.b2 ** step.float()
-
-    def upd(g, p, m, v):
-        if isinstance(p, DTensor):               # a ZeRO-1 shard
-            new = upd(g.to_local(), p.to_local(), m.to_local(), v.to_local())
-            return DTensor.from_local(new, p.device_mesh, p.placements,
-                                      run_check=False)
-        new = torch.empty(p.shape, dtype=torch.bfloat16, device=p.device)
-        g = g.reshape(-1)
-        flat = [x.view(-1) for x in (p, m, v, new)]
-        for i in range(0, g.numel(), CHUNK):
-            p_, m_, v_, new_ = (x[i:i + CHUNK] for x in flat)
-            g_ = g[i:i + CHUNK].float() * scale
-            m_.copy_(cfg.b1 * m_ + (1 - cfg.b1) * g_)
-            v_.copy_(cfg.b2 * v_ + (1 - cfg.b2) * g_ * g_)
-            mh = m_ / b1c
-            vh = v_ / b2c
-            p_.copy_(p_ - lr * (mh / (torch.sqrt(vh) + cfg.eps)
-                                + cfg.weight_decay * p_))
-            new_.copy_(p_.to(torch.bfloat16))
-        return new
-
-    bf16 = [upd(g, p, m, v) for g, p, m, v in zip(gl, pl, ml, vl)]
+    bf16 = ops.update(gl, pl, ml, vl, scale, lr, b1c, b2c, cfg.b1, cfg.b2,
+                      cfg.eps, cfg.weight_decay)
     return T.unflatten(grads, bf16), AdamWState(
         step, state.master, state.m, state.v), {
         "grad_norm": gnorm, "clip_scale": scale}

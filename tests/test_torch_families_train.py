@@ -39,6 +39,7 @@ from repro_torch import tree as T
 from repro_torch.checkpoint.ckpt import restore_checkpoint, save_checkpoint
 from repro_torch.core.integrity import Manifest
 from repro_torch.data.synthetic import for_model
+from repro_torch.kernels.adamw import ref as adamw_ref
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models.model import LM
 from repro_torch.optim import adamw
@@ -137,10 +138,11 @@ def test_training_checkpoint_same_files_both_ways(name, tmp_path):
 
 
 def test_adamw_slices_equal_the_whole_leaf(monkeypatch):
-    """A leaf updated in slices of 7 elements gives the whole leaf's new
-    params and state bit for bit (a leaf of 12 x 11 is 19 slices), below
-    the clip; the global norm summed by slices within 1e-6 of the whole
-    leaves' (it only reorders the sum)."""
+    """A leaf updated in slices of 7 elements (the plain version's
+    ``CHUNK``, which the CPU runs) gives the whole leaf's new params and
+    state bit for bit (a leaf of 12 x 11 is 19 slices), below the clip; the
+    global norm summed by slices within 1e-6 of the whole leaves' (it only
+    reorders the sum)."""
     rng = np.random.default_rng(3)
     params = {"w": torch.from_numpy(rng.standard_normal((12, 11)).astype(
         np.float32)).bfloat16(), "b": torch.ones(5, dtype=torch.bfloat16)}
@@ -148,8 +150,8 @@ def test_adamw_slices_equal_the_whole_leaf(monkeypatch):
         tuple(p.shape)).astype(np.float32) * 0.05).bfloat16(), params)
     lr = torch.tensor(1e-2)
     outs, norms = [], []
-    for chunk in (adamw.CHUNK, 7):
-        monkeypatch.setattr(adamw, "CHUNK", chunk)
+    for chunk in (adamw_ref.CHUNK, 7):
+        monkeypatch.setattr(adamw_ref, "CHUNK", chunk)
         state = adamw.init(params)
         for _ in range(2):
             new, state, m = adamw.update(grads, state, lr)

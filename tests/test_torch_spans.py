@@ -178,7 +178,8 @@ def _own_bytes(params, grads, state):
             "state_bytes": sum(x.numel() * x.element_size()
                                for t in (state.master, state.m, state.v)
                                for x in T.leaves(t)),
-            "out_bytes": 2 * n}
+            "out_bytes": 2 * n,
+            "leaves": sum(1 for p in leaves if p.numel())}
 
 
 def test_adamw_span_carries_the_trees_own_bytes(log):
@@ -195,6 +196,7 @@ def test_adamw_span_carries_the_trees_own_bytes(log):
     assert ups[1].attrs is ups[0].attrs          # cached for the tree
     assert want["state_bytes"] == 12 * want["numel"]
     assert want["grad_bytes"] == 2 * (30 + 3) + 4 * 14
+    assert want["leaves"] == 4
     # another tree, other gradients' dtype: counted anew
     other = T.tree_map(lambda p: p.float(), params)
     grads32 = T.tree_map(lambda p: torch.ones_like(p), other)
