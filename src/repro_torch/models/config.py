@@ -7,10 +7,15 @@ derived from the config; models are built by ``repro_torch.models.model``.
 
 The fields of ``ModelConfig``, ``SSMConfig`` and ``MoEConfig`` mirror the JAX
 package's, key for key.  The port's own options live on subclasses:
-``MixedConfig`` (a per-layer schedule of mixer and FFN, Jamba's, whose
-attention has no rotary embedding) and ``SSMNormConfig`` (Mamba1 with an
-RMSNorm over dt, B and C).  The modules read them through ``option``, which
-gives their off values for every other config, the JAX package's included.
+``MixedConfig`` (a per-layer schedule of mixer and FFN, Jamba's, or a
+per-block list of single sublayers read from a pattern string; its
+attention has no rotary embedding), ``SSMNormConfig`` (Mamba1 with an
+RMSNorm over dt, B and C), ``Mamba2HeadsConfig`` (Mamba2 whose inner width
+is its head count times the head dim, with a gated RMSNorm a group) and
+``SigmoidMoEConfig`` (a sigmoid router with a selection bias over
+non-gated relu² experts).  The modules read them through ``option``,
+which gives their off values for every other config, the JAX package's
+included.
 """
 from __future__ import annotations
 
@@ -58,6 +63,30 @@ class SSMNormConfig(SSMConfig):
     widths dt rank, d_state and d_state) between ``x_proj`` and their use,
     dt before ``dt_proj`` (Jamba's mixer)."""
     dt_bc_norm: ClassVar[bool] = True
+
+
+@dataclass(frozen=True)
+class Mamba2HeadsConfig(SSMConfig):
+    """Mamba2 of ``mamba_heads`` heads of ``headdim``: its inner width is
+    their product, not ``expand`` times d; the gated RMSNorm after the SSD
+    (``y * silu(z)``, then the norm) runs over each of the ``n_groups``
+    groups of channels on its own."""
+    mamba_heads: int = 0
+    group_norm: ClassVar[bool] = True
+
+
+@dataclass(frozen=True)
+class SigmoidMoEConfig(MoEConfig):
+    """Experts chosen by a sigmoid router: the top k of ``sigmoid(logits) +
+    score_bias`` (a per-expert f32 vector that picks, and weighs nothing),
+    weighted by their unbiased scores (renormalised to sum 1 where
+    ``router_norm_topk`` holds) times ``routed_scaling``.  Each expert, and
+    the shared one of width ``d_ff_shared``, is non-gated:
+    ``down(relu(up(h))^2)``."""
+    routed_scaling: float = 1.0
+    d_ff_shared: int = 0
+    sigmoid_router: ClassVar[bool] = True
+    relu2: ClassVar[bool] = True
 
 
 @dataclass(frozen=True)
@@ -188,37 +217,68 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class MixedConfig(ModelConfig):
-    """A stack of pre-norm layers that each pair a mixer with an FFN by
-    ``schedule`` (Jamba): ``x += mixer(rmsnorm(x)); x += ffn(rmsnorm(x))``,
-    the mixer GQA attention without positional encoding or Mamba1
-    (``ssm``), the FFN a gated MLP of width ``d_ff`` or the experts of
-    ``moe``."""
+    """A stack of pre-norm layers, in one of two layouts.  By ``schedule``
+    (Jamba) each layer pairs a mixer with an FFN: ``x += mixer(rmsnorm(x));
+    x += ffn(rmsnorm(x))``, the mixer GQA attention or Mamba1 (``ssm``),
+    the FFN a gated MLP of width ``d_ff`` or the experts of ``moe``.  By
+    ``blocks`` (a kind a block, "mamba2", "attn" or "moe", as a hybrid
+    pattern string such as "MEM*E" spells them) each block is one
+    sublayer, ``x += sub(rmsnorm(x))``: Mamba2 (``ssm``), GQA attention or
+    the experts of ``moe``.  The attention has no positional encoding."""
     schedule: Optional[ScheduleConfig] = None
+    blocks: Optional[Tuple[str, ...]] = None
     use_rope: ClassVar[bool] = False
 
-    def layer_plan(self) -> Tuple[Tuple[str, str], ...]:
+    def layer_plan(self) -> Tuple[Tuple[Optional[str], Optional[str]], ...]:
+        """(mixer, ffn) of each layer: a mixer "attn", "mamba1" or "mamba2"
+        or None, an FFN "moe" or "mlp" or None (a block of one sublayer
+        has one of the two)."""
+        if self.blocks is not None:
+            return tuple((None, k) if k == "moe" else (k, None)
+                         for k in self.blocks)
         return self.schedule.plan(self.n_layers)
 
     def layer_kinds(self) -> Tuple[str, ...]:
-        return tuple("attn" if m == "attn" else "ssm"
-                     for m, _ in self.layer_plan())
+        return tuple("attn" if m == "attn" else "moe" if m is None
+                     else "ssm" for m, _ in self.layer_plan())
 
 
 # the port's own options at their off values: what ``option`` gives for a
 # config whose class lacks them
-_OFF = {"schedule": None, "use_rope": True, "dt_bc_norm": False}
+_OFF = {"schedule": None, "blocks": None, "use_rope": True,
+        "dt_bc_norm": False, "mamba_heads": 0, "group_norm": False,
+        "sigmoid_router": False, "relu2": False, "routed_scaling": 1.0,
+        "d_ff_shared": 0}
 
 
 def option(cfg: Any, name: str) -> Any:
     """The port-only option ``name`` of ``cfg`` (a ``ModelConfig`` for
-    ``schedule`` and ``use_rope``, an ``SSMConfig`` for ``dt_bc_norm``), or
-    its off value where the config's class has no such option."""
+    ``schedule``, ``blocks`` and ``use_rope``, an ``SSMConfig`` for
+    ``dt_bc_norm``, ``mamba_heads`` and ``group_norm``, a ``MoEConfig`` for
+    ``sigmoid_router``, ``relu2``, ``routed_scaling`` and ``d_ff_shared``),
+    or its off value where the config's class has no such option."""
     return getattr(cfg, name, _OFF[name])
+
+
+def mamba2_heads(cfg: ModelConfig) -> Tuple[int, int]:
+    """(inner width, heads) of the config's Mamba2: ``mamba_heads`` heads
+    of ``headdim`` where the option is set, else ``expand`` times d cut
+    into heads of ``headdim``."""
+    s = cfg.ssm
+    H = option(s, "mamba_heads") or s.expand * cfg.d_model // s.headdim
+    return H * s.headdim, H
+
+
+def is_mixed(cfg: ModelConfig) -> bool:
+    """Whether the config lays its stack out by a ``schedule`` or by
+    ``blocks`` (the mixed pattern)."""
+    return option(cfg, "schedule") is not None \
+        or option(cfg, "blocks") is not None
 
 
 def param_count(cfg: ModelConfig) -> Tuple[int, int]:
     """(total_params, active_params) — analytic, for roofline MODEL_FLOPS."""
-    if option(cfg, "schedule") is not None:
+    if is_mixed(cfg):
         return _mixed_param_count(cfg)
     d = cfg.d_model
     total = 0
@@ -303,27 +363,43 @@ def param_count(cfg: ModelConfig) -> Tuple[int, int]:
 
 def _mixed_param_count(cfg: MixedConfig) -> Tuple[int, int]:
     """``param_count`` of a ``MixedConfig``, leaf for leaf as the port's
-    tree holds it: every norm scale, Mamba1's conv bias and dt bias, and the
-    router counted; the active count takes the top-k experts of each MoE."""
+    tree holds it: every norm scale (one a sublayer), Mamba1's conv bias
+    and dt bias, Mamba2's conv biases, dt bias, A, D and norm, and the
+    router and its selection bias counted; the active count takes the top-k
+    experts of each MoE."""
     d, V, hd = cfg.d_model, cfg.vocab_size, cfg.head_dim
     s, m = cfg.ssm, cfg.moe
-    d_in = s.expand * d
-    r = max(1, d // 16)
-    mamba = (2 * d * d_in + (s.d_conv + 1) * d_in + d_in * (r + 2 * s.d_state)
-             + r * d_in + d_in + d_in * s.d_state + d_in + d_in * d)
-    if s.dt_bc_norm:
-        mamba += r + 2 * s.d_state
+
+    def mamba(version: int) -> int:
+        if version == 2:
+            d_in, H = mamba2_heads(cfg)
+            conv = d_in + 2 * s.n_groups * s.d_state
+            return (d * (d_in + conv + H) + (s.d_conv + 1) * conv + 3 * H
+                    + d_in + d_in * d)
+        d_in = s.expand * d
+        r = max(1, d // 16)
+        p = (2 * d * d_in + (s.d_conv + 1) * d_in
+             + d_in * (r + 2 * s.d_state) + r * d_in + d_in
+             + d_in * s.d_state + d_in + d_in * d)
+        return p + (r + 2 * s.d_state if option(s, "dt_bc_norm") else 0)
     attn = d * hd * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
-    expert = 3 * d * m.d_ff_expert
     total = active = V * d * (1 if cfg.tie_embeddings else 2) + d
     for mixer, ffn in cfg.layer_plan():
-        mix = 2 * d + (attn if mixer == "attn" else mamba)
-        total += mix
-        active += mix
+        sub = d * ((mixer is not None) + (ffn is not None))
+        if mixer is not None:
+            sub += attn if mixer == "attn" else mamba(int(mixer[-1]))
+        total += sub
+        active += sub
         if ffn == "moe":
-            total += d * m.n_routed + expert * (m.n_routed + m.n_shared)
-            active += d * m.n_routed + expert * (m.top_k + m.n_shared)
-        else:
+            mats = 2 if option(m, "relu2") else 3
+            expert = mats * d * m.d_ff_expert
+            shared = mats * d * (option(m, "d_ff_shared")
+                                 or m.n_shared * m.d_ff_expert)
+            router = d * m.n_routed + (m.n_routed if option(
+                m, "sigmoid_router") else 0)
+            total += router + expert * m.n_routed + shared
+            active += router + expert * m.top_k + shared
+        elif ffn == "mlp":
             total += 3 * d * cfg.d_ff
             active += 3 * d * cfg.d_ff
     return total, active

@@ -1,5 +1,6 @@
 """Core transformer layers: RMSNorm, RoPE and M-RoPE, GQA and MLA attention,
-gated MLP.
+gated MLP (and the non-gated relu² one of the port's sigmoid-routed
+experts).
 
 A port of the JAX package's ``models/layers.py``.
 Conventions are the reference's:
@@ -11,7 +12,8 @@ Conventions are the reference's:
 * The cast points are the reference's, which the bf16 comparison with it
   depends on: norms, RoPE and softmax compute in f32 and cast back to the
   input dtype; q and k are cast back after RoPE; ``sdpa`` casts its output
-  to q's dtype; the MLP takes its SiLU in f32 and casts before ``w_down``.
+  to q's dtype; the MLP takes its SiLU (or relu²) in f32 and casts before
+  ``w_down``.
 
 Attention runs full causal, sliding-window causal, and decode over a KV
 cache: a full-length one, or for a windowed layer whose cache is no longer
@@ -362,16 +364,21 @@ def mla_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
 
 
 # --------------------------------------------------------------------------- mlp
-def init_mlp(gen: torch.Generator, d: int, ff: int, dtype) -> dict:
-    return {
-        "w_gate": _dense_init(gen, (d, ff), dtype),
-        "w_up": _dense_init(gen, (d, ff), dtype),
-        "w_down": _dense_init(gen, (ff, d), dtype),
-    }
+def init_mlp(gen: torch.Generator, d: int, ff: int, dtype,
+             gated: bool = True) -> dict:
+    p = {"w_gate": _dense_init(gen, (d, ff), dtype)} if gated else {}
+    p["w_up"] = _dense_init(gen, (d, ff), dtype)
+    p["w_down"] = _dense_init(gen, (ff, d), dtype)
+    return p
 
 
-def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
-    g = x @ p["w_gate"]
-    u = x @ p["w_up"]
-    h = F.silu(g.float()) * u.float()
+def mlp(p: Params, x: torch.Tensor, gated: bool = True) -> torch.Tensor:
+    """``silu(x w_gate) * (x w_up)``, or non-gated ``relu(x w_up)^2``, then
+    ``w_down``."""
+    if gated:
+        g = x @ p["w_gate"]
+        u = x @ p["w_up"]
+        h = F.silu(g.float()) * u.float()
+    else:
+        h = torch.square(F.relu((x @ p["w_up"]).float()))
     return h.to(x.dtype) @ p["w_down"]

@@ -16,10 +16,13 @@ patterns (``derive_pattern``), and a sixth of the port's own:
 * ``hybrid`` (zamba2-1.2b): groups of ``group_local`` Mamba2 layers, each
   group followed by one weight-shared attention block (with a KV cache per
   call site), then a tail of Mamba2 layers;
-* ``mixed`` (a ``MixedConfig``: Jamba): a list of blocks, each a mixer
-  (GQA attention or Mamba1) and an FFN (a gated MLP or a mixture of
-  experts) as the config's schedule gives them per layer; the cache holds
-  a ``KVCache`` or a ``Mamba1State`` by layer.
+* ``mixed`` (a ``MixedConfig``): a list of blocks, each a mixer (GQA
+  attention or Mamba1) and an FFN (a gated MLP or a mixture of experts) as
+  the config's schedule gives them per layer (Jamba), or each one
+  sublayer, Mamba2, GQA attention or a mixture of experts, as the
+  config's ``blocks`` list them; the cache holds a ``KVCache``, a
+  ``Mamba1State`` or a ``Mamba2State`` by layer, and None for an experts
+  block.
 
 The reference scans over stacked parameter banks to keep its compiled
 graph small; here each layer is an ``nn.Module`` in an ``nn.ModuleList``,
@@ -74,7 +77,7 @@ from repro_torch.models import layers as L
 from repro_torch.models.axes import constrain
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
-from repro_torch.models.config import ModelConfig, option
+from repro_torch.models.config import ModelConfig, is_mixed, mamba2_heads
 
 Cache = Dict[str, Any]
 Inputs = Union[torch.Tensor, Mapping[str, Any]]
@@ -92,7 +95,7 @@ class Pattern(NamedTuple):
 
 
 def derive_pattern(cfg: ModelConfig) -> Pattern:
-    if option(cfg, "schedule") is not None:
+    if is_mixed(cfg):
         return Pattern("mixed", n_scan=cfg.n_layers)
     if cfg.family == "ssm":
         return Pattern("ssm", n_scan=cfg.n_layers)
@@ -118,11 +121,13 @@ Path = Tuple[Union[str, int], ...]
 class Layer(NamedTuple):
     """One layer of the stack as ``plan_stack`` lays it out.  Its mixer
     names its cache: a ``KVCache`` (a ring of ``ring`` positions where that
-    is set), an ``MLACache``, a ``Mamba1State`` or a ``Mamba2State``."""
+    is set), an ``MLACache``, a ``Mamba1State`` or a ``Mamba2State``; a
+    layer without a mixer caches None.  A ``Block`` has both a mixer and an
+    FFN, a ``Sublayer`` one of the two."""
     params: Path              # its parameters in the tree, its module in LM
-    mixer: str                # "attn", "mla", "mamba1" or "mamba2"
-    ffn: Optional[str]        # "mlp", "dense" (the MoE lead's width) or
-    #                           "moe" for a ``Block``; None for an SSMLayer
+    mixer: Optional[str]      # "attn", "mla", "mamba1", "mamba2" or None
+    ffn: Optional[str]        # "mlp", "dense" (the MoE lead's width),
+    #                           "moe" or None
     window: Optional[int]     # attention's window
     cache: Optional[Path]     # its state in the cache tree
     ring: Optional[int]       # a KV ring's length (at most the cache's)
@@ -228,16 +233,28 @@ def _at(tree, path: Path):
     return tree
 
 
+_SUBLAYERS = ("ssm", "attn", "moe")
+
+
+def _key(mixer: Optional[str], ffn: Optional[str]) -> str:
+    """The parameter key of a layer's one sublayer or its mixer."""
+    if mixer is None:
+        return ffn
+    return "ssm" if mixer.startswith("mamba") else "attn"
+
+
 def _layout(node):
-    """The layers of a parameter tree, or of a plan's, each as "ssm" (an
-    SSMLayer) or a ``Block``'s (mixer key, FFN key); None for a part
-    without any."""
+    """The layers of a parameter tree, or of a plan's, each as a
+    ``Sublayer``'s key ("ssm", "attn" or "moe") or a ``Block``'s (mixer
+    key, FFN key); None for a part without any."""
     if isinstance(node, Layer):
-        node = dict.fromkeys(("ln",) if node.ffn is None else (
-            "ln1", "ssm" if node.mixer == "mamba1" else "attn", node.ffn))
+        node = dict.fromkeys(
+            ("ln", _key(node.mixer, node.ffn))
+            if node.mixer is None or node.ffn is None else
+            ("ln1", _key(node.mixer, None), node.ffn))
     if isinstance(node, Mapping):
         if "ln" in node:
-            return "ssm"
+            return next(k for k in _SUBLAYERS if k in node)
         if "ln1" in node:
             return ("ssm" if "ssm" in node else "attn",
                     "moe" if "moe" in node else "mlp")
@@ -338,23 +355,39 @@ class Block(ParamTree):
         return constrain(x + f, ("batch", "seq", None)), new_cache, aux
 
 
-def init_ssm_layer(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
+def init_sublayer(gen: torch.Generator, cfg: ModelConfig, dtype,
+                  key: str) -> dict:
+    init = {"ssm": SSM.init_ssm_block, "attn": L.init_attention,
+            "moe": MOE.init_moe}[key]
     return {"ln": L.init_rmsnorm(cfg.d_model, dtype, gen.device),
-            "ssm": SSM.init_ssm_block(gen, cfg, dtype)}
+            key: init(gen, cfg, dtype)}
 
 
-class SSMLayer(ParamTree):
-    """Pre-norm SSM layer (Mamba1 or Mamba2): ``ln``, ``ssm``."""
+class Sublayer(ParamTree):
+    """Pre-norm block of one sublayer: ``ln``, then ``ssm`` (Mamba1 or
+    Mamba2), ``attn`` (GQA) or ``moe``; ``x + sub(rmsnorm(x))``.  Called
+    as a ``Block`` is, it returns (x, new cache, aux loss): an SSM's cache
+    is its state, which it replaces; attention writes its KV cache at
+    ``cache_index``; the experts cache nothing and give the aux loss (None
+    elsewhere)."""
 
     def __init__(self, cfg: ModelConfig, params: Mapping[str, Any]):
         super().__init__(params)
         self.cfg = cfg
 
-    def forward(self, x, state=None, return_state=False):
-        h = L.rmsnorm(self["ln"], x, self.cfg.norm_eps)
-        y, new_state = SSM.ssm_block(self["ssm"], self.cfg, h, state,
-                                     return_state)
-        return constrain(x + y, ("batch", "seq", None)), new_state
+    def forward(self, x, positions=None, cache=None, cache_index=None,
+                window=None, positions3=None):
+        cfg = self.cfg
+        h = L.rmsnorm(self["ln"], x, cfg.norm_eps)
+        aux = None
+        if "ssm" in self._modules:
+            y, cache = SSM.ssm_block(self["ssm"], cfg, h, cache)
+        elif "attn" in self._modules:
+            y, cache = L.attention(self["attn"], cfg, h, positions, cache,
+                                   cache_index, window, positions3)
+        else:
+            y, aux = MOE.moe_forward(self["moe"], cfg, h)
+        return constrain(x + y, ("batch", "seq", None)), cache, aux
 
 
 # ======================================================================== model
@@ -383,8 +416,9 @@ class LM(nn.Module):
         self._check_layers(params)
         self.io = ParamTree({k: v for k, v in params.items()
                              if k not in LAYER_KEYS})
-        mods = _map(lambda layer: (Block if layer.ffn else SSMLayer)(
-            cfg, _at(params, layer.params)), self.plan.params)
+        mods = _map(lambda layer: (
+            Block if layer.mixer and layer.ffn else Sublayer)(
+                cfg, _at(params, layer.params)), self.plan.params)
         # (an empty list where the plan has no such part)
         self.lead = _module_tree(mods.get("lead"))
         self.blocks = _module_tree(mods.get("blocks"))
@@ -433,8 +467,9 @@ class LM(nn.Module):
                                                cfg.vocab_size), dtype)
 
         def draw(layer):
-            if layer.ffn is None:
-                return init_ssm_layer(gen, cfg, dtype)
+            if layer.mixer is None or layer.ffn is None:
+                return init_sublayer(gen, cfg, dtype,
+                                     _key(layer.mixer, layer.ffn))
             return init_block(
                 gen, cfg, dtype, use_moe=layer.ffn == "moe",
                 dense_ff=cfg.moe.d_ff_dense if layer.ffn == "dense" else 0,
@@ -483,8 +518,10 @@ class LM(nn.Module):
     # ----------------------------------------------------------------- cache
     def _state(self, layer: Layer, batch: int, max_seq: int):
         """A layer's zero cache: its KV (ring) or MLA cache, or its SSM
-        state."""
+        state; None without a mixer."""
         cfg = self.cfg
+        if layer.mixer is None:
+            return None
 
         def zeros(*shape, dtype=torch.bfloat16):
             return torch.zeros(shape, dtype=dtype, device=self.device)
@@ -496,13 +533,14 @@ class LM(nn.Module):
             shape = (batch, seq, cfg.n_kv_heads, cfg.head_dim)
             return L.KVCache(zeros(*shape), zeros(*shape))
         s = cfg.ssm
-        d_in = s.expand * cfg.d_model
         if layer.mixer == "mamba1":
+            d_in = s.expand * cfg.d_model
             conv, h = d_in, (d_in, s.d_state)
             state = SSM.Mamba1State
         else:
+            d_in, H = mamba2_heads(cfg)
             conv = d_in + 2 * s.n_groups * s.d_state
-            h = (d_in // s.headdim, s.headdim, s.d_state)
+            h = (H, s.headdim, s.d_state)
             state = SSM.Mamba2State
         return state(zeros(batch, s.d_conv - 1, conv),
                      zeros(batch, *h, dtype=torch.float32))
@@ -574,13 +612,10 @@ class LM(nn.Module):
 
         for layer, block in self._layers:
             state = _at(cache, layer.cache) if serving else None
-            if layer.ffn is None:
-                x, state = run(block, x, state)
-            else:
-                x, state, a = run(block, x, positions, state, t, layer.window,
-                                  positions3 if layer.positions3 else None)
-                if a is not None:
-                    aux = aux + a
+            x, state, a = run(block, x, positions, state, t, layer.window,
+                              positions3 if layer.positions3 else None)
+            if a is not None:
+                aux = aux + a
             states[layer.cache] = state
         x = L.rmsnorm(self.io["final_norm"], x, self.cfg.norm_eps)
         if not serving:

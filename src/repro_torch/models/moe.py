@@ -14,13 +14,20 @@ Three paths, by the config and the input:
 * the sharded capacity dispatch (below), over a mesh;
 * dropless (``MoEConfig.capacity_factor=None``, the port's own; Jamba's
   published model drops nothing), on one device: the N K routings sorted
-  by expert, each expert's gated MLP on its contiguous run of rows (N K
-  rows in all, no padding), then the f32 combine.  On the card in bf16
-  the experts are three grouped products (``torch._grouped_mm``) over the
-  runs' ends, kept on the device; elsewhere a loop over the experts, whose
-  run lengths the host reads once a layer (one synchronisation).  While a
-  profiler runs it is the fine span ``moe.experts`` and holds the count
-  ``moe.load``, the routings per expert.
+  by expert, each expert's MLP on its contiguous run of rows (N K rows in
+  all, no padding), then the f32 combine.  On the card in bf16 the
+  experts are grouped products (``torch._grouped_mm``) over the runs'
+  ends, kept on the device: three for gated experts, two for non-gated
+  relu² ones; elsewhere a loop over the experts, whose run lengths the
+  host reads once a layer (one synchronisation).  While a profiler runs
+  it is the fine span ``moe.experts`` and holds the count ``moe.load``,
+  the routings per expert.
+
+The router is a softmax over the experts, or, where the config is a
+``SigmoidMoEConfig``, a sigmoid of each logit whose top k are chosen by the
+scores plus a selection bias (``score_bias``) and weighted by the scores
+themselves, renormalised and scaled; its experts and its shared expert
+(of width ``d_ff_shared``) are then non-gated relu² MLPs.
 
 The sharded path (``_moe_forward_sharded``, the reference's
 ``_moe_forward_shardmap``) runs where logical-axis rules are installed over
@@ -54,7 +61,7 @@ from typing import Mapping, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.config import ModelConfig, MoEConfig
+from repro_torch.models.config import ModelConfig, MoEConfig, option
 from repro_torch.models.layers import _dense_init, init_mlp, mlp
 from repro_torch.obs import spans
 
@@ -69,14 +76,18 @@ def moe_capacity(m: MoEConfig, n_tokens: int) -> int:
 def init_moe(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
     m = cfg.moe
     d, ff, E = cfg.d_model, m.d_ff_expert, m.n_routed
-    p = {
-        "router": _dense_init(gen, (d, E), torch.float32, scale=0.02),
-        "w_gate": _dense_init(gen, (E, d, ff), dtype),
-        "w_up": _dense_init(gen, (E, d, ff), dtype),
-        "w_down": _dense_init(gen, (E, ff, d), dtype),
-    }
+    relu2 = option(m, "relu2")
+    p = {"router": _dense_init(gen, (d, E), torch.float32, scale=0.02)}
+    if option(m, "sigmoid_router"):
+        p["score_bias"] = torch.zeros((E,), dtype=torch.float32,
+                                      device=gen.device)
+    if not relu2:
+        p["w_gate"] = _dense_init(gen, (E, d, ff), dtype)
+    p["w_up"] = _dense_init(gen, (E, d, ff), dtype)
+    p["w_down"] = _dense_init(gen, (E, ff, d), dtype)
     if m.n_shared > 0:
-        p["shared"] = init_mlp(gen, d, m.n_shared * ff, dtype)
+        p["shared"] = init_mlp(gen, d, option(m, "d_ff_shared")
+                               or m.n_shared * ff, dtype, gated=not relu2)
     return p
 
 
@@ -89,10 +100,13 @@ def _count(ids: torch.Tensor, E: int) -> torch.Tensor:
 
 def _routing(p: Params, m: MoEConfig, xf: torch.Tensor):
     """Router softmax + top-k + Switch-style load-balancing aux loss:
-    (top_w (N, K) f32, top_i (N, K) int64, aux f32 scalar)."""
+    (top_w (N, K) f32, top_i (N, K) int64, aux f32 scalar).  A sigmoid
+    router goes to ``_sigmoid_routing``."""
     N = xf.shape[0]
     E, K = m.n_routed, m.top_k
     logits = xf.float() @ p["router"].float()                        # (N, E)
+    if option(m, "sigmoid_router"):
+        return _sigmoid_routing(p, m, logits)
     probs = torch.softmax(logits, dim=-1)
     top_i = torch.sort(probs.detach(), dim=-1, descending=True,
                        stable=True).indices[:, :K]                   # (N, K)
@@ -103,6 +117,23 @@ def _routing(p: Params, m: MoEConfig, xf: torch.Tensor):
     ce = _count(top_i.reshape(-1), E).float() / (N * K)
     aux = E * torch.sum(me * ce)
     return top_w, top_i, aux
+
+
+def _sigmoid_routing(p: Params, m: MoEConfig, logits: torch.Tensor):
+    """The top k of ``sigmoid(logits) + score_bias`` by a stable descending
+    sort (ties to the lower expert), weighted by their unbiased scores,
+    renormalised where ``router_norm_topk`` holds (over their sum + 1e-20,
+    as the published router divides) and times ``routed_scaling``.  The
+    bias balances the load in training; there is no auxiliary loss
+    (0)."""
+    scores = torch.sigmoid(logits)
+    top_i = torch.sort((scores + p["score_bias"].float()).detach(), dim=-1,
+                       descending=True, stable=True).indices[:, :m.top_k]
+    top_w = torch.gather(scores, 1, top_i)
+    if m.router_norm_topk:
+        top_w = top_w / (torch.sum(top_w, dim=-1, keepdim=True) + 1e-20)
+    return top_w * option(m, "routed_scaling"), top_i, \
+        logits.new_zeros(())
 
 
 def _dispatch(top_i: torch.Tensor, C: int, E: int, e0: int = 0,
@@ -164,13 +195,18 @@ def _grouped(x: torch.Tensor) -> bool:
 
 
 def _grouped_mlp(rows, load, w_gate, w_up, w_down) -> torch.Tensor:
-    """Each expert's gated MLP on its run of ``rows`` (sorted by expert,
-    ``load`` rows each, a tensor on the device) as three grouped products
-    over the runs' ends: no synchronisation.  The casts are ``mlp``'s."""
+    """Each expert's MLP on its run of ``rows`` (sorted by expert, ``load``
+    rows each, a tensor on the device) as grouped products over the runs'
+    ends: no synchronisation.  Three for gated experts; two for non-gated
+    relu² ones (``w_gate`` None).  The casts are ``mlp``'s."""
     offs = torch.cumsum(load, 0).to(torch.int32)
-    g = torch._grouped_mm(rows, w_gate, offs=offs)
-    u = torch._grouped_mm(rows, w_up, offs=offs)
-    h = (F.silu(g.float()) * u.float()).to(rows.dtype)
+    if w_gate is None:
+        u = torch._grouped_mm(rows, w_up, offs=offs)
+        h = torch.square(F.relu(u.float())).to(rows.dtype)
+    else:
+        g = torch._grouped_mm(rows, w_gate, offs=offs)
+        u = torch._grouped_mm(rows, w_up, offs=offs)
+        h = (F.silu(g.float()) * u.float()).to(rows.dtype)
     return torch._grouped_mm(h, w_down, offs=offs)
 
 
@@ -180,8 +216,10 @@ def _looped_mlp(rows, load, w_gate, w_up, w_down) -> torch.Tensor:
     outs, start = [], 0
     for e, n in enumerate(load):
         if n:
-            outs.append(mlp({"w_gate": w_gate[e], "w_up": w_up[e],
-                             "w_down": w_down[e]}, rows[start:start + n]))
+            p = {"w_up": w_up[e], "w_down": w_down[e]}
+            if w_gate is not None:
+                p["w_gate"] = w_gate[e]
+            outs.append(mlp(p, rows[start:start + n], w_gate is not None))
             start += n
     return torch.cat(outs)
 
@@ -189,8 +227,9 @@ def _looped_mlp(rows, load, w_gate, w_up, w_down) -> torch.Tensor:
 def _dropless_ffn_combine(xf, top_w, top_i, w_gate, w_up, w_down
                           ) -> torch.Tensor:
     """Every routing to its expert, none dropped.  xf: (N, d); top_w/top_i:
-    (N, K); w_*: (E, d, f)/(E, f, d).  The routings sorted by expert
-    (stable), each expert's gated MLP on its run of the sorted rows
+    (N, K); w_*: (E, d, f)/(E, f, d), ``w_gate`` None for non-gated relu²
+    experts.  The routings sorted by expert
+    (stable), each expert's MLP on its run of the sorted rows
     (``_grouped_mlp`` where ``_grouped`` holds, else ``_looped_mlp``, which
     reads the runs' lengths on the host: one synchronisation), the outputs
     put back in routing order and combined in f32 over each token's K
@@ -201,7 +240,7 @@ def _dropless_ffn_combine(xf, top_w, top_i, w_gate, w_up, w_down
     with spans.fine("moe.experts"):
         flat = top_i.reshape(-1)
         order = torch.argsort(flat, stable=True)
-        load = _count(flat, w_gate.shape[0])
+        load = _count(flat, w_up.shape[0])
         rows = xf[order // K]                               # (N K, d)
         if _grouped(xf):
             spans.count("moe.load", load)
@@ -232,7 +271,8 @@ def moe_forward(p: Params, cfg: ModelConfig, x: torch.Tensor
     else:
         xf = x.reshape(N, d)
         top_w, top_i, aux = _routing(p, m, xf)
-        ws = p["w_gate"], p["w_up"], p["w_down"]
+        ws = (None if option(m, "relu2") else p["w_gate"], p["w_up"],
+              p["w_down"])
         if m.capacity_factor is None:
             out = _dropless_ffn_combine(xf, top_w, top_i, *ws)
         else:
@@ -240,7 +280,7 @@ def moe_forward(p: Params, cfg: ModelConfig, x: torch.Tensor
                                         moe_capacity(m, N))
         out = out.to(x.dtype).reshape(B, T, d)
     if m.n_shared > 0:
-        out = out + mlp(p["shared"], x)
+        out = out + mlp(p["shared"], x, not option(m, "relu2"))
     return out, aux
 
 

@@ -19,9 +19,16 @@ op for op.
 
 Mamba2 (zamba2) runs the reference's chunked SSD algorithm as eager
 PyTorch: the reference has no kernel for it either, and its products are
-``torch.einsum`` / matmul calls.  Its x, B and C have depthwise convs of
-their own, while a decode state keeps their trailing inputs concatenated
-as ``x|B|C``, as the reference's does.
+``torch.einsum`` / matmul calls; while a profiler runs it is the fine span
+``mamba2.ssd`` (attrs B, T, H, P, N, G).  Its x, B and C have depthwise
+convs of their own weights, run as one conv over the concatenated
+channels ``x|B|C`` (a depthwise conv treats each channel alone, so the
+numbers are the three convs'), and a decode state keeps their trailing
+inputs concatenated so, as the reference's does.  Where the config's SSM
+is a ``Mamba2HeadsConfig`` the inner width is its ``mamba_heads`` times
+``headdim``, not ``expand`` times d, and the gated RMSNorm after the SSD
+runs over each of the ``n_groups`` groups of channels on its own; without
+it the block is zamba2's, whole-width norm and all.
 """
 from __future__ import annotations
 
@@ -33,7 +40,7 @@ import torch.nn.functional as F
 from repro_torch.kernels.mamba_scan.ops import (conv_step, selective_scan,
                                                 state_step)
 from repro_torch.models.axes import constrain
-from repro_torch.models.config import ModelConfig, option
+from repro_torch.models.config import ModelConfig, mamba2_heads, option
 from repro_torch.models.layers import (Params, _dense_init, init_rmsnorm,
                                        rmsnorm)
 from repro_torch.obs import spans
@@ -49,7 +56,9 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
     state: (B, d_conv-1, C) trailing inputs from the previous call (decode).
     Returns (y (B, T, C) in x's dtype, new_state (B, d_conv-1, C)); the new
     state has the dtype the concatenation of state and x promotes to, as in
-    the reference.
+    the reference.  After more than one token it is a copy: a view would
+    keep the whole (B, T + d_conv - 1, C) concatenation alive as long as
+    the cache holds the state.
     """
     B, T, C = x.shape
     dk = w.shape[0]
@@ -61,7 +70,8 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
         y = y + xp[:, i:i + T, :].float() * w[i].float()
     if bias is not None:
         y = y + bias.float()
-    return y.to(x.dtype), xp[:, T:, :]
+    tail = xp[:, T:, :]
+    return y.to(x.dtype), tail.clone() if T > 1 else tail
 
 
 # ================================================================== Mamba1
@@ -191,8 +201,7 @@ class Mamba2State(NamedTuple):
 def init_mamba2(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
     s = cfg.ssm
     d = cfg.d_model
-    d_in = s.expand * d
-    nheads = d_in // s.headdim
+    d_in, nheads = mamba2_heads(cfg)
     GN = s.n_groups * s.d_state
     dev = gen.device
 
@@ -236,11 +245,11 @@ def _ssd_chunked(xh, dt, B_, C_, A, h0, chunk: int):
     h0: (B, H, P, N) f32.  Returns (y (B, T, H, P), hT).  Chunk by chunk
     in order, as the reference's scan: within a chunk the diagonal block
     from the decay matrix, the carried state's contribution, and the next
-    state."""
+    state.  Where ``chunk`` does not divide T the last chunk is shorter
+    (the reference takes only whole chunks)."""
     Bsz, T, H, P = xh.shape
     G = B_.shape[2]
     Lc = min(chunk, T)
-    assert T % Lc == 0, (T, Lc)
     rep = H // G
     h = h0
     ys = []
@@ -272,23 +281,17 @@ def mamba2_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
     run the chunked SSD from the state."""
     s = cfg.ssm
     B, T, d = x.shape
-    d_in = s.expand * d
-    H = d_in // s.headdim
+    d_in, H = mamba2_heads(cfg)
     P, G, N = s.headdim, s.n_groups, s.d_state
 
     z = x @ p["in_z"]
-    xx = x @ p["in_x"]
-    xB = x @ p["in_B"]
-    xC = x @ p["in_C"]
+    xBC = torch.cat([x @ p["in_x"], x @ p["in_B"], x @ p["in_C"]], dim=-1)
     dt_raw = (x @ p["in_dt"]).float()
-    cs = state.conv if state is not None else None
-    cs_x = cs[..., :d_in] if cs is not None else None
-    cs_B = cs[..., d_in:d_in + G * N] if cs is not None else None
-    cs_C = cs[..., d_in + G * N:] if cs is not None else None
-    x_c, ncv_x = causal_conv1d(xx, p["conv_x_w"], p["conv_x_b"], cs_x)
-    B_c, ncv_B = causal_conv1d(xB, p["conv_B_w"], p["conv_B_b"], cs_B)
-    C_c, ncv_C = causal_conv1d(xC, p["conv_C_w"], p["conv_C_b"], cs_C)
-    new_conv = torch.cat([ncv_x, ncv_B, ncv_C], dim=-1)
+    xBC, new_conv = causal_conv1d(
+        xBC, torch.cat([p["conv_x_w"], p["conv_B_w"], p["conv_C_w"]], 1),
+        torch.cat([p["conv_x_b"], p["conv_B_b"], p["conv_C_b"]]),
+        state.conv if state is not None else None)
+    x_c, B_c, C_c = torch.split(xBC, [d_in, G * N, G * N], dim=-1)
     xh = F.silu(x_c.float()).reshape(B, T, H, P)
     B_ = F.silu(B_c.float()).reshape(B, T, G, N)
     C_ = F.silu(C_c.float()).reshape(B, T, G, N)
@@ -309,15 +312,27 @@ def mamba2_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
         y = torch.einsum("bhpn,bhn->bhp", h, cg)[:, None]  # (B, 1, H, P)
         hT = h
     else:
-        y, hT = _ssd_chunked(xh, dt, B_, C_, A, h0, s.chunk)
+        with spans.fine("mamba2.ssd", B=B, T=T, H=H, P=P, N=N, G=G):
+            y, hT = _ssd_chunked(xh, dt, B_, C_, A, h0, s.chunk)
     y = y + p["D"][:, None] * xh
     y = y.reshape(B, T, d_in)
     y = y * F.silu(z.float())
-    y = rmsnorm(p["norm"], y.to(x.dtype), cfg.norm_eps)
+    y = _group_rmsnorm(p["norm"], y.to(x.dtype),
+                       G if option(s, "group_norm") else 1, cfg.norm_eps)
     out = y @ p["out_proj"]
     new_state = (Mamba2State(new_conv, hT)
                  if (return_state or state is not None) else None)
     return out, new_state
+
+
+def _group_rmsnorm(p: Params, x: torch.Tensor, groups: int,
+                   eps: float) -> torch.Tensor:
+    """``rmsnorm`` over each of ``groups`` equal groups of x's last axis on
+    its own (one group: ``rmsnorm``'s numbers), times the scale of the
+    whole width; f32 inside, x's dtype out."""
+    xf = x.float().unflatten(-1, (groups, -1))
+    y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return (y.flatten(-2) * p["scale"].float()).to(x.dtype)
 
 
 def init_ssm_block(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
